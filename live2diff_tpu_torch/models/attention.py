@@ -1,0 +1,102 @@
+"""Spatial transformer blocks (per-frame self-attention + text cross-attention).
+
+Port of ``live2diff_tpu/models/attention.py``: the SD-1.5 spatial
+transformer applied framewise over ``[B, F, H, W, C]``. Attention runs
+through ``ops.attention.dot_product_attention``, so on the card both the
+self- and the cross-attention launch the flash kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention with an optional cross-attention source; q/k/v
+    carry no bias, the output projection does (diffusers ``Attention``)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = None, cross_frame: bool = False):
+        super().__init__()
+        if cross_frame:
+            raise NotImplementedError(
+                "SparseCausalAttention (unet_use_cross_frame_attention=True) is not "
+                "ported; no shipped config enables it"
+            )
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+
+        def split_heads(x):
+            return x.reshape(*x.shape[:-1], self.heads, self.dim_head)
+
+        out = dot_product_attention(
+            split_heads(self.to_q(hidden_states)),
+            split_heads(self.to_k(ctx)),
+            split_heads(self.to_v(ctx)),
+        )
+        return self.to_out[0](out.reshape(*out.shape[:-2], -1))
+
+
+class BasicTransformerBlock(nn.Module):
+    """LayerNorm -> self-attn -> LayerNorm -> cross-attn -> LayerNorm -> GEGLU FF."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768,
+                 cross_frame_attention: bool = False):
+        super().__init__()
+        self.norm1 = FusedLayerNorm(dim, 1e-5, site="spatial")
+        self.attn1 = CrossAttention(dim, heads, dim_head, cross_frame=cross_frame_attention)
+        self.norm2 = FusedLayerNorm(dim, 1e-5, site="spatial")
+        self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim)
+        self.norm3 = FusedLayerNorm(dim, 1e-5, site="spatial")
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), encoder_hidden_states)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer3DModel(nn.Module):
+    """GroupNorm -> 1x1 conv proj_in -> transformer blocks over H*W tokens ->
+    1x1 conv proj_out -> residual, per frame (SD-1.5: conv projections)."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, num_layers: int = 1,
+                 cross_attention_dim: int = 768, cross_frame_attention: bool = False,
+                 norm_num_groups: int = 32):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="attn_in")
+        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
+                                  cross_frame_attention)
+            for _ in range(num_layers)
+        ])
+        self.proj_out = nn.Conv2d(inner, channels, 1)
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        b, f, h, w, c = hidden_states.shape
+        x = self.norm(hidden_states.reshape(b * f, h * w, c))
+        # 1x1 convs as linear maps over the channel axis
+        x = F.linear(x, self.proj_in.weight[:, :, 0, 0], self.proj_in.bias)
+        ctx = encoder_hidden_states.repeat_interleave(f, dim=0)  # text repeats per frame
+        for block in self.transformer_blocks:
+            x = block(x, ctx)
+        x = F.linear(x, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias)
+        return x.reshape(b, f, h, w, c) + hidden_states

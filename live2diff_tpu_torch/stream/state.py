@@ -1,0 +1,32 @@
+"""StreamState: the complete per-stream runtime state, as tensors.
+
+Port of ``live2diff_tpu/stream/state.py``. Everything the per-frame step
+changes lives here. The step updates the KV caches in place and replaces
+the small tensors, so a stream holds one copy of its caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+# one float cache [steps, 2, window, C, HW], or an int8 cache as
+# (data int8 [steps, 2, window, C, HW], scales f32 [steps, 2, window, C])
+KVCache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class StreamState:
+    generator: torch.Generator  # the stream's noise source
+    # window bookkeeping (shared by all temporal attention layers)
+    attn_mask: torch.Tensor  # [steps, window] bool
+    pe_idx: torch.Tensor  # [steps, window] int64
+    update_idx: torch.Tensor  # [steps] int64
+    # per-layer temporal KV caches, forward-traversal order
+    kv_caches: Tuple[KVCache, ...]
+    # stream-batch latent buffers for the n-1 in-flight frames
+    x_t_buffer: torch.Tensor  # [steps-1, h, w, 4] f32
+    depth_buffer: torch.Tensor  # [steps-1, h, w, 4] f32
+    frame_idx: int = 0
