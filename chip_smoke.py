@@ -8,15 +8,20 @@ Phases, each printed as it ends; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build the port's CUDA kernels with nvcc.
 2. kernels: each hand-written kernel against its plain torch version on the
-   card, at every shape the 512x512 stream step gives it, with its time,
-   the plain version's time, one library call's time as a yardstick
-   (never used by the port), and its roofline bound.
-3. small input: a narrow pipeline (64x64 frames) on the card, bf16 with
-   the kernels, against the same weights and noise in fp32 on the CPU.
-4. slice: ``build_pipeline`` at full SD-1.5 width (bench config: 2 LCM
-   steps, TAESD, int8 KV cache, uint8 frames), random weights from seed 0:
-   ``prepare`` on 8 warmup frames, then streamed frames, timed; every
-   kernel's launches per stream step are asserted.
+   card, at every shape the 512x512 stream step and ``prepare`` give it,
+   with its time, the plain version's time, one library call's time as a
+   yardstick (never used by the port), and its roofline bound.
+3. small input: a narrow pipeline (64x64 frames, a narrow 384x384 DPT) on
+   the card, bf16 with the kernels, against the same weights and noise in
+   fp32 on the CPU.
+4. slice: bench.py's main path. ``build_pipeline`` at full width (SD-1.5
+   motion UNet, 2 LCM steps, TAESD, DPT-hybrid depth, int8 KV cache, uint8
+   frames), random weights from seed 0: ``prepare`` on 8 warmup frames,
+   then streamed frames, timed and profiled; every kernel's launches in
+   ``prepare`` and per stream step are asserted.
+5. bf16 cache: the same at full width with a bf16 KV cache and no depth
+   model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
+   the bf16 stream-attention kernel's launches asserted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -26,6 +31,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -55,8 +61,20 @@ BENCH_CONFIG = {  # bench.py's make_config([30, 40])
     },
 }
 STREAM_FRAMES = 32
-EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 32,
-                     "conv3x3": 64, "conv3x3_s2": 3}
+BF16_FRAMES = 8
+# launches per stream step with depth: flash 32 in the UNet + 12 in the ViT;
+# the one batched encode of frame and depth image keeps the conv counts
+EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 44,
+                     "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
+                     "stream_attention_bf16": 0}
+# prepare(): 2 warmup UNet forwards (32 spatial + 40 motion attentions each)
+# and one DPT forward over the 8 warmup frames
+EXPECTED_PREPARE = {"stream_attention_int8": 0, "flash_attention": 156,
+                    "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
+                    "stream_attention_bf16": 0}
+EXPECTED_PER_STEP_BF16 = {"stream_attention_bf16": 40, "stream_attention_int8": 0,
+                          "flash_attention": 32, "conv3x3": 64, "conv3x3_s2": 3,
+                          "layer_norm": 0}
 
 
 def phase(name: str) -> None:
@@ -108,9 +126,9 @@ def compare(kernel_out, plain_out, tol: float):
 # ---------------------------------------------------------------------------
 
 
-def check_stream_attention(torch, gen, dev):
+def check_stream_attention(torch, gen, dev, cache: str):
     from live2diff_tpu_torch.ops.stream_attention import (
-        stream_window_attention_int8, stream_window_attention_plain,
+        stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
     )
 
     s, heads, window = 2, 8, 16
@@ -118,29 +136,38 @@ def check_stream_attention(torch, gen, dev):
     # (C, HW) of the 4 UNet levels at 512x512; 10 calls each per stream step
     for c, hw in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
         q = torch.randn(s, hw, c, generator=gen, device=dev).to(torch.bfloat16)
-        data = torch.randint(-127, 128, (s, 2, window, c, hw), generator=gen, device=dev,
-                             dtype=torch.int8)
-        scales = 0.002 + 0.02 * torch.rand(s, 2, window, c, generator=gen, device=dev)
         extra = torch.randn(s, window, heads, hw, generator=gen, device=dev)
         extra[:, 9:] = float("-inf")  # an early-stream mask: slots 9..15 not visible
         pe_v = torch.randn(s, window, c, generator=gen, device=dev)
-        args = (q, data, scales, extra, pe_v, (c // heads) ** -0.5, heads)
-        out = stream_window_attention_int8(*args)
+        if cache == "int8":
+            data = torch.randint(-127, 128, (s, 2, window, c, hw), generator=gen, device=dev,
+                                 dtype=torch.int8)
+            scales = 0.002 + 0.02 * torch.rand(s, 2, window, c, generator=gen, device=dev)
+            args = (q, data, scales, extra, pe_v, (c // heads) ** -0.5, heads)
+            plain_args = args
+            kernel = stream_window_attention_int8
+            cache_bytes = data.numel() + 4 * scales.numel()
+        else:
+            data = torch.randn(s, 2, window, c, hw, generator=gen, device=dev).to(torch.bfloat16)
+            args = (q, data, extra, pe_v, (c // heads) ** -0.5, heads)
+            plain_args = (q, data, None, extra, pe_v, (c // heads) ** -0.5, heads)
+            kernel = stream_window_attention_bf16
+            cache_bytes = 2 * data.numel()
+        out = kernel(*args)
         torch.cuda.synchronize()
-        ref = stream_window_attention_plain(*args)
+        ref = stream_window_attention_plain(*plain_args)
         torch.cuda.synchronize()
-        # the plain version rounds the dequantised K/V and the probabilities
-        # to bf16 (~2^-9 each); the kernel keeps them in fp32
+        # the plain version rounds the (dequantised) K/V and the
+        # probabilities to bf16 (~2^-9 each); the kernel keeps them in fp32
         err, rel = compare(out, ref, 2e-2)
-        nbytes = (2 * q.numel() + data.numel() + 4 * scales.numel() + 4 * extra.numel()
-                  + 4 * pe_v.numel() + 2 * q.numel())
-        flops = 6 * window * s * c * hw  # q.k, v dequant + pe, p.v
+        nbytes = 2 * q.numel() + cache_bytes + 4 * extra.numel() + 4 * pe_v.numel() + 2 * q.numel()
+        flops = 6 * window * s * c * hw  # q.k, v (dequant) + pe, p.v
         b_ms, b_by = bound(nbytes, flops, "fp32")
         rows.append(dict(
-            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] int8", calls=10, prepare_calls=0,
-            max_abs_err=err, rel_err=rel, tol=2e-2,
-            ms=time_ms(lambda: stream_window_attention_int8(*args), 50),
-            plain_ms=time_ms(lambda: stream_window_attention_plain(*args), 3),
+            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}", calls=10,
+            prepare_calls=0, max_abs_err=err, rel_err=rel, tol=2e-2,
+            ms=time_ms(lambda: kernel(*args), 50),
+            plain_ms=time_ms(lambda: stream_window_attention_plain(*plain_args), 3),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
     return rows
@@ -151,19 +178,20 @@ def check_flash(torch, gen, dev):
 
     from live2diff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
-    h = 8
     rows = []
-    # (B, Sq, Sk, D, calls per stream step, calls in prepare). The stream
+    # (B, Sq, Sk, H, D, calls per stream step, calls in prepare). The stream
     # step: self- and cross-attention (77 text tokens) of the 2-step batch
-    # at the 4 levels. prepare(): spatial attention over the 8 warmup frames
-    # (B = 8), and the bidirectional motion attention over those 8 frames
-    # with the positions folded into the batch (B = HW, S = 8).
-    for b, sq, sk, d, calls, prep in (
-        (2, 4096, 4096, 40, 5, 0), (2, 1024, 1024, 80, 5, 0), (2, 256, 256, 160, 5, 0),
-        (2, 64, 64, 160, 1, 0), (2, 4096, 77, 40, 5, 0), (2, 1024, 77, 80, 5, 0),
-        (2, 256, 77, 160, 5, 0), (2, 64, 77, 160, 1, 0),
-        (8, 4096, 4096, 40, 0, 10), (4096, 8, 8, 40, 0, 20), (1024, 8, 8, 80, 0, 20),
-        (256, 8, 8, 160, 0, 20), (64, 8, 8, 160, 0, 20),
+    # at the 4 levels, and the DPT's ViT self-attention over 577 tokens,
+    # 12 heads, in each of its 12 blocks. prepare(): spatial attention over
+    # the 8 warmup frames (B = 8), the bidirectional motion attention over
+    # those 8 frames with the positions folded into the batch (B = HW,
+    # S = 8), and the ViT over the 8 warmup frames.
+    for b, sq, sk, h, d, calls, prep in (
+        (2, 4096, 4096, 8, 40, 5, 0), (2, 1024, 1024, 8, 80, 5, 0), (2, 256, 256, 8, 160, 5, 0),
+        (2, 64, 64, 8, 160, 1, 0), (2, 4096, 77, 8, 40, 5, 0), (2, 1024, 77, 8, 80, 5, 0),
+        (2, 256, 77, 8, 160, 5, 0), (2, 64, 77, 8, 160, 1, 0), (1, 577, 577, 12, 64, 12, 0),
+        (8, 4096, 4096, 8, 40, 0, 10), (4096, 8, 8, 8, 40, 0, 20), (1024, 8, 8, 8, 80, 0, 20),
+        (256, 8, 8, 8, 160, 0, 20), (64, 8, 8, 8, 160, 0, 20), (8, 577, 577, 12, 64, 0, 12),
     ):
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, sk, h, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -196,15 +224,21 @@ def check_conv(torch, gen, dev, stride: int):
     from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 
     # (B, H = W, Cin, bias, skip+ReLU, calls per stream step, calls in
-    # prepare): the stream step codes one frame (B = 1); prepare() encodes
-    # and decodes the 8 warmup frames as one batch (B = 8, largest level shown)
+    # prepare): the stream step encodes the frame and its depth image as one
+    # batch (B = 2: 31 stride-1 calls, 4 of them at 512x512, 9 at each
+    # other level) and decodes one frame (B = 1: 33 calls, 4 / 10 / 10 / 9
+    # from 512x512 down); prepare() encodes 8 frames and their 8 depth
+    # images (B = 16) and decodes 8 frames (B = 8), largest level shown
     if stride == 1:
-        shapes = ((1, 512, 3, True, False, 1, 0), (1, 512, 64, True, True, 7, 0),
-                  (1, 256, 64, True, True, 19, 0), (1, 128, 64, True, True, 19, 0),
-                  (1, 64, 64, True, True, 18, 0), (8, 512, 64, True, True, 0, 7))
+        shapes = ((2, 512, 3, True, False, 1, 0), (2, 512, 64, True, True, 3, 0),
+                  (2, 256, 64, True, True, 9, 0), (2, 128, 64, True, True, 9, 0),
+                  (2, 64, 64, True, True, 9, 0), (1, 512, 64, True, True, 4, 0),
+                  (1, 256, 64, True, True, 10, 0), (1, 128, 64, True, True, 10, 0),
+                  (1, 64, 64, True, True, 9, 0), (16, 512, 3, True, False, 0, 1),
+                  (16, 512, 64, True, True, 0, 3), (8, 512, 64, True, True, 0, 4))
     else:  # the three encoder downsamples: no bias, no ReLU
-        shapes = ((1, 512, 64, False, False, 1, 0), (1, 256, 64, False, False, 1, 0),
-                  (1, 128, 64, False, False, 1, 0), (8, 512, 64, False, False, 0, 1))
+        shapes = ((2, 512, 64, False, False, 1, 0), (2, 256, 64, False, False, 1, 0),
+                  (2, 128, 64, False, False, 1, 0), (16, 512, 64, False, False, 0, 1))
     rows = []
     for nb, hw, cin, has_bias, fused, calls, prep in shapes:
         x = torch.randn(nb, hw, hw, cin, generator=gen, device=dev).to(torch.bfloat16)
@@ -232,6 +266,38 @@ def check_conv(torch, gen, dev, stride: int):
             plain_ms=time_ms(lambda: conv3x3_plain(*args), 5),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.conv2d(x_cl, w, bias, stride, 1), 50),
+        ))
+    return rows
+
+
+def check_layer_norm(torch, gen, dev):
+    import torch.nn.functional as F
+
+    from live2diff_tpu_torch.ops.norm import layer_norm, layer_norm_plain
+
+    c, eps = 768, 1e-6
+    rows = []
+    # (rows, calls per stream step, calls in prepare): the ViT's 2 LayerNorms
+    # in each of its 12 blocks over 577 tokens per frame (1 frame a step,
+    # the 8 warmup frames in prepare), and one ragged shape
+    for n, calls, prep in ((577, 24, 0), (577 * 8, 0, 24), (1001, 0, 0)):
+        x = (torch.randn(n, c, generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        out = layer_norm(x, g, b, eps, site="vit")
+        torch.cuda.synchronize()
+        ref = layer_norm_plain(x, g, b, eps)
+        torch.cuda.synchronize()
+        # same fp32 statistics in another order; one bf16 rounding of the output
+        err, rel = compare(out, ref, 1e-2)
+        b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), 8 * x.numel(), "fp32")
+        rows.append(dict(
+            shape=f"x[{n},{c}] bf16", calls=calls, prepare_calls=prep,
+            max_abs_err=err, rel_err=rel, tol=1e-2,
+            ms=time_ms(lambda: layer_norm(x, g, b, eps, site="vit"), 100),
+            plain_ms=time_ms(lambda: layer_norm_plain(x, g, b, eps), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.layer_norm(x, (c,), g, b, eps), 100),
         ))
     return rows
 
@@ -288,15 +354,31 @@ def fan_in_init_(module, gen) -> None:
                 p.normal_(0.0, 0.05, generator=gen)
 
 
+# the narrow DPT of tests/_torch_parity.py at the 384x384 input the stream fixes
+SMALL_DPT = dict(image_size=384, patch_grid=24, vit_hidden=16, vit_layers=2, vit_heads=2,
+                 vit_mlp=32, hooks=(0, 1), resnet_layers=(1, 1, 1), features=8)
+
+
 def small_input_check(torch):
     from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.models.midas import DPTConfig, DPTDepthModel
+    from live2diff_tpu_torch.stream.pipeline import StreamDiffusionDepth
+
+    gen = torch.Generator().manual_seed(5)
+    dpt = DPTDepthModel(DPTConfig(**SMALL_DPT))
+    fan_in_init_(dpt, gen)
 
     def build(device, dtype):
-        return build_pipeline(SMALL_CONFIG, 64, 64, dtype=dtype, kv_cache_dtype="int8",
-                              seed=0, device=device, unet_overrides=SMALL_UNET)
+        b = build_pipeline(SMALL_CONFIG, 64, 64, dtype=dtype, kv_cache_dtype="int8",
+                           seed=0, device=device, unet_overrides=SMALL_UNET, use_depth=False)
+        depth = DPTDepthModel(DPTConfig(**SMALL_DPT))
+        depth.load_state_dict(dpt.state_dict())
+        depth = depth.to(device=device, dtype=dtype).eval()
+        stream = StreamDiffusionDepth(b.unet, b.vae, b.schedule, b.stream_config,
+                                      torch.device(device), dtype, depth_model=depth)
+        return b, stream
 
-    ref, card = build("cpu", torch.float32), build("cuda", torch.bfloat16)
-    gen = torch.Generator().manual_seed(5)
+    (ref, ref_stream), (card, card_stream) = build("cpu", torch.float32), build("cuda", torch.bfloat16)
     fan_in_init_(ref.unet, gen)
     fan_in_init_(ref.vae, gen)
     card.unet.load_state_dict(ref.unet.state_dict())
@@ -315,43 +397,65 @@ def small_input_check(torch):
         a, b = a.float().cpu(), b.float().cpu()
         return (((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt()).item()
 
-    s_ref, w_ref = ref.stream.prepare(warm, prompt, noise=noise(10))
-    s_card, w_card = card.stream.prepare(warm, prompt, noise=noise(10))
+    with torch.no_grad():
+        depth_ref = ref_stream._depth_image(warm)
+        depth_card = card_stream._depth_image(warm.cuda())
+    depth_err = rel_rms(depth_card, depth_ref)
+    if not depth_ref.std() > 0.05:
+        raise AssertionError(f"small input: flat depth image (std {depth_ref.std():.3g})")
+    s_ref, w_ref = ref_stream.prepare(warm, prompt, noise=noise(10))
+    s_card, w_card = card_stream.prepare(warm, prompt, noise=noise(10))
     errs = [rel_rms(w_card, w_ref)]
     for i, f in enumerate(frames):
-        s_ref, o_ref = ref.stream(s_ref, f, noise=noise(100 + i))
-        s_card, o_card = card.stream(s_card, f, noise=noise(100 + i))
+        s_ref, o_ref = ref_stream(s_ref, f, noise=noise(100 + i))
+        s_card, o_card = card_stream(s_card, f, noise=noise(100 + i))
         if not torch.isfinite(o_card).all():
             raise AssertionError(f"small input: frame {i} not finite")
         errs.append(rel_rms(o_card, o_ref))
     torch.cuda.synchronize()
-    if not max(errs) <= SMALL_TOL:
-        raise AssertionError(f"small input: rel RMS errors {errs} exceed {SMALL_TOL}")
-    return errs
+    if not max(errs + [depth_err]) <= SMALL_TOL:
+        raise AssertionError(
+            f"small input: rel RMS errors {errs} (depth image {depth_err}) exceed {SMALL_TOL}")
+    return errs, depth_err, float(depth_ref.std())
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the slice at full width
+# phases 4 and 5: streams at full width
 # ---------------------------------------------------------------------------
 
 
-def run_slice(torch, _build):
+def check_counts(what, counts, expected, per: int):
+    for name, n in expected.items():
+        if counts[name] != n * per:
+            raise AssertionError(
+                f"{what}: {name} launched {counts[name]} times, expected {n} x {per}")
+
+
+def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile, **build_kw):
+    """build_pipeline at full width, prepare, then ``n_frames`` frames, each
+    timed on the host clock to a synchronize; launch counts are zeroed just
+    before prepare and before the frames, and asserted just after each."""
     from live2diff_tpu_torch.builder import build_pipeline
 
     dev = torch.device("cuda")
+    gc.collect()  # an earlier phase's pipeline, freed before this one is built
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    built = build_pipeline(BENCH_CONFIG, 512, 512, dtype=torch.bfloat16, kv_cache_dtype="int8",
-                           output_uint8=True, seed=0, device=dev)
+    built = build_pipeline(BENCH_CONFIG, 512, 512, dtype=torch.bfloat16, output_uint8=True,
+                           seed=0, device=dev, **build_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     stream = built.stream
-    n_params = sum(p.numel() for p in built.unet.parameters())
+    n_params = {"unet": sum(p.numel() for p in built.unet.parameters())}
+    if built.depth_model is not None:
+        n_params["depth"] = sum(p.numel() for p in built.depth_model.parameters())
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
     warm = torch.rand(8, 512, 512, 3, generator=gen, device=dev) * 2 - 1
-    frames = torch.randint(0, 256, (STREAM_FRAMES, 512, 512, 3), generator=gen, device=dev,
+    frames = torch.randint(0, 256, (n_frames, 512, 512, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
 
     _build.reset_launch_counts()
@@ -362,13 +466,23 @@ def run_slice(torch, _build):
     warm_counts = dict(_build.launch_counts)
     if warm_out.shape != (8, 512, 512, 3) or warm_out.dtype != torch.uint8:
         raise AssertionError(f"warmup output {tuple(warm_out.shape)} {warm_out.dtype}")
-    if len(state.kv_caches) != 40 or not all(torch.isfinite(s).all() for _, s in state.kv_caches):
-        raise AssertionError("prepare() left missing or non-finite KV-cache scales")
+    if len(state.kv_caches) != 40:
+        raise AssertionError(f"prepare() left {len(state.kv_caches)} KV caches, expected 40")
+    int8 = isinstance(state.kv_caches[0], tuple)
+    finite = [torch.isfinite(c[1] if int8 else c).all() for c in state.kv_caches]
+    if not all(finite):
+        raise AssertionError("prepare() left non-finite KV caches (or int8 scales)")
+    check_counts("prepare", warm_counts, expected_prepare, 1)
+    peak_prepare = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the warm step runs on a throwaway state: a second set of KV caches
     first_step_s = stream.warm_frame_step(torch.uint8)
+    peak_warm_step = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
 
     _build.reset_launch_counts()
     times, outs = [], []
-    for i in range(STREAM_FRAMES):
+    for i in range(n_frames):
         t0 = time.perf_counter()
         state, out = stream(state, frames[i])
         torch.cuda.synchronize()
@@ -378,53 +492,71 @@ def run_slice(torch, _build):
         if not torch.isfinite(state.x_t_buffer).all():
             raise AssertionError(f"frame {i}: non-finite latents")
     counts = dict(_build.launch_counts)
+    peak_stream = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (512, 512, 3) or out.dtype != torch.uint8:
             raise AssertionError(f"frame output {tuple(out.shape)} {out.dtype}")
-    for name, per_step in EXPECTED_PER_STEP.items():
-        if counts[name] != per_step * STREAM_FRAMES:
-            raise AssertionError(
-                f"{name}: {counts[name]} launches over {STREAM_FRAMES} frames, "
-                f"expected {per_step} per step"
-            )
-    for name in ("flash_attention", "conv3x3", "conv3x3_s2"):  # warmup has no stream attention
-        if warm_counts[name] == 0:
-            raise AssertionError(f"{name}: no launch in prepare()")
+    check_counts(f"{n_frames} stream steps", counts, expected_step, n_frames)
+    if not torch.isfinite(state.depth_buffer).all():
+        raise AssertionError("non-finite depth latents")
     steady = sorted(times[2:])
-    profile = profile_steps(torch, stream, state, frames[:4])
-    if isinstance(profile["device_ms_per_step"], float):
-        # the profiler slows the host; the busy share of an unprofiled step
-        profile["device_ms_over_frame_ms_p50"] = (
-            profile["device_ms_per_step"] / statistics.median(steady))
-    return dict(
-        unet_params=n_params, build_s=build_s, prepare_s=prepare_s,
-        first_step_s=first_step_s, frames=STREAM_FRAMES,
+    result = dict(
+        params=n_params, build_s=build_s, prepare_s=prepare_s,
+        first_step_s=first_step_s, frames=n_frames,
         frame_ms_p50=statistics.median(steady),
         frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
         frame_ms_all=times,
         fps_p50=1e3 / statistics.median(steady),
-        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        # peak device memory from the build on (the warm step included), and
+        # over prepare alone and the streamed frames alone
+        max_memory_allocated_bytes=max(peak_prepare, peak_warm_step, peak_stream),
+        max_memory_prepare_bytes=peak_prepare, max_memory_stream_bytes=peak_stream,
+        memory_allocated_at_start_bytes=allocated_at_start,
         outputs_uint8_512x512x3=True,
         output_mean=float(torch.stack(outs).float().mean()),
         output_std=float(torch.stack(outs).float().std()),
-        launches_warmup=warm_counts,
+        launches_prepare=warm_counts,
         launches_stream=counts,
-        launches_per_step={k: v / STREAM_FRAMES for k, v in counts.items()},
-        profile=profile,
-    ), counts
+        launches_per_step={k: v / n_frames for k, v in counts.items()},
+    )
+    if built.depth_model is not None:
+        result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
+    if profile:
+        result["profile"] = prof = profile_steps(torch, stream, state, frames[:4])
+        if isinstance(prof["device_ms_per_call"], float):
+            # the profiler slows the host; the busy share of an unprofiled step
+            prof["device_ms_over_frame_ms_p50"] = prof["device_ms_per_call"] / result["frame_ms_p50"]
+        if built.depth_model is not None:
+            result["depth_profile"] = dprof = profile_depth(torch, stream, frames[:4])
+            if isinstance(dprof["device_ms_per_call"], float):
+                dprof["share_of_step_device_ms"] = (dprof["device_ms_per_call"]
+                                                    / prof["device_ms_per_call"])
+                dprof["share_of_step_kernels"] = (dprof["kernels_per_call"]
+                                                  / prof["kernels_per_call"])
+    return result, counts
 
 
-def profile_steps(torch, stream, state, frames):
-    """torch.profiler over a few stream steps: device time per step by
-    kernel name, and the device-busy share of the wall time (which the
-    profiler's own host overhead lowers)."""
+def raw_depth_stats(torch, stream, frames):
+    """min, max and std of the DPT's raw output for a few stream frames,
+    before the stream's min-max normalisation."""
+    from live2diff_tpu_torch.models.midas import resize_nhwc
+
+    with torch.no_grad():
+        x = resize_nhwc(frames.float() / 127.5 - 1.0, stream.DEPTH_SIZE, stream.DEPTH_SIZE)
+        depth = stream.depth_model(x.to(stream.dtype)).float()
+    return [dict(min=float(d.min()), max=float(d.max()), std=float(d.std())) for d in depth]
+
+
+def profile_device(torch, call, n):
+    """torch.profiler over ``n`` calls of ``call()``: device time and kernel
+    launches per call by kernel name, and the device-busy share of the wall
+    time (which the profiler's own host overhead lowers)."""
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(frames)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for frame in frames:
-            state, _ = stream(state, frame)
+        for _ in range(n):
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -439,11 +571,31 @@ def profile_steps(torch, stream, state, frames):
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     return dict(
-        steps=n, wall_ms_per_step=wall_ms,
-        device_ms_per_step=device_ms if rows else "not measured",
+        calls=n, wall_ms_per_call=wall_ms,
+        device_ms_per_call=device_ms if rows else "not measured",
+        kernels_per_call=sum(r[1] for r in rows) if rows else "not measured",
         device_busy_share=device_ms / wall_ms if rows else "not measured",
-        top=[dict(ms_per_step=r[0], calls_per_step=r[1], name=r[2][:90]) for r in rows[:25]],
+        top=[dict(ms_per_call=r[0], launches_per_call=r[1], name=r[2][:90]) for r in rows[:25]],
     )
+
+
+def profile_steps(torch, stream, state, frames):
+    """The device profile of a few stream steps."""
+    box, it = [state], iter(frames)
+
+    def step():
+        box[0], _ = stream(box[0], next(it))
+
+    return profile_device(torch, step, len(frames))
+
+
+def profile_depth(torch, stream, frames):
+    """The device profile of the depth branch of a few stream steps: the
+    512 -> 384 resize, the DPT, the min-max normalisation and the resize
+    back, one frame a call."""
+    it = iter(frames.float() / 127.5 - 1.0)
+    with torch.no_grad():
+        return profile_device(torch, lambda: stream._depth_image(next(it)[None]), len(frames))
 
 
 def main() -> int:
@@ -469,8 +621,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build(["stream_attention", "flash_attention", "conv3x3"])
-    print(f"kernel build (3 nvcc in parallel): {time.perf_counter() - t0:.1f} s", flush=True)
+    sources = ["stream_attention", "flash_attention", "conv3x3", "layer_norm"]
+    _build.build(sources)
+    print(f"kernel build ({len(sources)} nvcc in parallel): {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -479,15 +633,22 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     phase("kernels against their plain versions")
+    src = "live2diff_tpu_torch/csrc/"
     kernels = [
-        summarise("stream_attention_int8", "live2diff_tpu_torch/csrc/stream_attention.cu",
-                  "live2diff_tpu/ops/stream_attention.py:198", check_stream_attention(torch, gen, dev)),
-        summarise("flash_attention", "live2diff_tpu_torch/csrc/flash_attention.cu",
+        summarise("stream_attention_int8", src + "stream_attention.cu",
+                  "live2diff_tpu/ops/stream_attention.py:198",
+                  check_stream_attention(torch, gen, dev, "int8")),
+        summarise("stream_attention_bf16", src + "stream_attention.cu",
+                  "live2diff_tpu/ops/stream_attention.py:91",
+                  check_stream_attention(torch, gen, dev, "bf16")),
+        summarise("flash_attention", src + "flash_attention.cu",
                   "live2diff_tpu/ops/flash_attention.py:143", check_flash(torch, gen, dev)),
-        summarise("conv3x3", "live2diff_tpu_torch/csrc/conv3x3.cu",
+        summarise("conv3x3", src + "conv3x3.cu",
                   "live2diff_tpu/ops/conv.py:492", check_conv(torch, gen, dev, 1)),
-        summarise("conv3x3_s2", "live2diff_tpu_torch/csrc/conv3x3.cu",
+        summarise("conv3x3_s2", src + "conv3x3.cu",
                   "live2diff_tpu/ops/conv.py:507", check_conv(torch, gen, dev, 2)),
+        summarise("layer_norm", src + "layer_norm.cu",
+                  "live2diff_tpu/ops/norm.py:224", check_layer_norm(torch, gen, dev)),
     ]
     for k in kernels:
         for r in k["shapes"]:
@@ -496,17 +657,34 @@ def main() -> int:
                   f"({r['bound_by']}) library {r['library_ms']}")
     sys.stdout.flush()
 
-    phase("small input: card (bf16, kernels) against CPU (fp32, plain)")
-    errs = small_input_check(torch)
+    phase("small input: card (bf16, kernels) against CPU (fp32, plain), with a narrow DPT")
+    errs, depth_err, depth_std = small_input_check(torch)
     print(f"per-frame relative RMS error, warmup then 12 frames: {errs}")
+    print(f"depth image of the warmup frames: relative RMS error {depth_err}, std {depth_std}")
 
-    phase("slice at full width: 512x512, SD-1.5 motion UNet, TAESD, int8 cache")
-    result, counts = run_slice(torch, _build)
-    print(json.dumps({k: v for k, v in result.items() if k != "frame_ms_all"}))
+    phase("slice at full width: bench.py's main path (512x512, SD-1.5 motion UNet, TAESD, "
+          "DPT-hybrid depth, int8 cache)")
+    result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
+                                EXPECTED_PREPARE, profile=True, kv_cache_dtype="int8")
+    print(json.dumps({k: v for k, v in result.items()
+                      if k not in ("frame_ms_all", "raw_depth", "depth_profile")}))
+    print(f"depth branch profile: {json.dumps(result.get('depth_profile'))}")
     print(f"frame ms all: {[round(t, 3) for t in result['frame_ms_all']]}")
+    print(f"raw depth (min, max, std) of 4 stream frames: {json.dumps(result['raw_depth'])}")
+    del result
+    sys.stdout.flush()
+
+    phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
+    result_bf16, counts_bf16 = run_stream(torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16,
+                                          {"stream_attention_int8": 0, "layer_norm": 0},
+                                          profile=False, kv_cache_dtype="bf16", use_depth=False)
+    print(json.dumps({k: v for k, v in result_bf16.items() if k != "frame_ms_all"}))
+
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        k["launches_per_step"] = counts[k["name"]] / STREAM_FRAMES
+        run_counts, frames = ((counts_bf16, BF16_FRAMES) if k["name"] == "stream_attention_bf16"
+                              else (counts, STREAM_FRAMES))
+        k["launches"] = run_counts[k["name"]]
+        k["launches_per_step"] = run_counts[k["name"]] / frames
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Pipeline builder: config -> models -> random weights -> StreamDiffusionDepth.
 
-Port of the parts of ``live2diff_tpu/builder.py:build_pipeline`` that this
-slice covers: the TAESD codec, no depth model, no text encoder. Checkpoint
+Port of the parts of ``live2diff_tpu/builder.py:build_pipeline`` that the
+port covers: the UNet, the TAESD codec and the DPT-hybrid depth model (on
+by default, as in the JAX package); no text encoder. Checkpoint
 ingest is a later slice, so every weight is a seeded random normal at
 scale 0.02 (as ``live2diff_tpu/builder.py`` draws its placeholders), drawn on the device by a
 ``torch.Generator``. Prompt embeddings come in as a ``[1, 77, 768]`` tensor.
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from .config import ConfigDict, load_config
+from .models.midas import DPTConfig, DPTDepthModel
 from .models.unet import UNet3DConditionModel, UNetConfig
 from .models.vae import TinyAutoencoder
 from .schedule import LCMSchedule
@@ -32,6 +34,7 @@ class BuiltPipeline:
     vae: TinyAutoencoder
     schedule: LCMSchedule
     stream_config: StreamConfig
+    depth_model: Optional[DPTDepthModel] = None
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -77,23 +80,21 @@ def build_pipeline(
     num_inference_steps: Optional[int] = None,
     strength: Optional[float] = None,
     use_tiny_vae: bool = True,
-    use_depth: bool = False,
+    use_depth: bool = True,
     do_add_noise: bool = True,
     unet_overrides: Optional[Dict] = None,
 ) -> BuiltPipeline:
     """Build the streaming pipeline from a reference-style config dict or YAML.
 
     ``kv_cache_dtype`` is ``"int8"`` (the served default), ``"bf16"`` or a
-    torch dtype; it defaults to ``dtype``. Runs on the card unless
+    torch dtype; it defaults to ``dtype``. ``use_depth`` adds the full
+    DPT-hybrid depth model (``DPTConfig()``). Runs on the card unless
     ``device`` says otherwise.
     """
-    if use_depth:
-        raise NotImplementedError(
-            "use_depth=True needs the DPT-hybrid depth model (models/midas.py and its "
-            "LayerNorm kernel), the next item of ROADMAP.md's port queue"
-        )
     if not use_tiny_vae:
-        raise NotImplementedError("AutoencoderKL is not ported yet (ROADMAP.md port queue)")
+        raise NotImplementedError(
+            "AutoencoderKL is not ported yet (ROADMAP.md queue 1, item 7: use_tiny_vae=False)"
+        )
     device = resolve_device(device)
     cfg = load_config(config) if isinstance(config, str) else ConfigDict.wrap(config)
 
@@ -114,6 +115,8 @@ def build_pipeline(
     generator = torch.Generator(device=device).manual_seed(seed)
     unet = _materialise(lambda: UNet3DConditionModel(unet_cfg), device, dtype, generator)
     vae = _materialise(TinyAutoencoder, device, dtype, generator)
-    stream = StreamDiffusionDepth(unet, vae, schedule, scfg, device, dtype)
+    depth_model = (_materialise(lambda: DPTDepthModel(DPTConfig()), device, dtype, generator)
+                   if use_depth else None)
+    stream = StreamDiffusionDepth(unet, vae, schedule, scfg, device, dtype, depth_model)
     return BuiltPipeline(stream=stream, unet=unet, vae=vae, schedule=schedule,
-                         stream_config=scfg)
+                         stream_config=scfg, depth_model=depth_model)

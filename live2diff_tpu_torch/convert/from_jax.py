@@ -11,12 +11,18 @@ own torch->flax converter maps from; this is the inverse of that map:
   Flax wrapper levels (InflatedConv's ``conv``, InflatedGroupNorm's
   ``norm``) are dropped; flattened names (``down_blocks_0_resnets_1``,
   ``to_out_0``, ``layers_5``) become dotted torch paths.
+
+The DPT depth model's tree takes ``dpt_torch_key`` instead: the inverse of
+``live2diff_tpu/convert/midas.py:dpt_key_map``, onto the MiDaS checkpoint
+names (``stem_conv`` -> ``pretrained.model.patch_embed.backbone.stem.conv``,
+``vit_blocks_3/attn_qkv`` -> ``pretrained.model.blocks.3.attn.qkv``, ...);
+``cls_token`` and ``pos_embed`` pass through unchanged.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +73,43 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join([_rename(m) for m in mods] + [leaf])
 
 
+_BACKBONE = "pretrained.model.patch_embed.backbone"
+# (pattern, replacement) on the dotted flax module path; the first match wins
+_DPT_RENAMES = tuple((re.compile(p), r) for p, r in (
+    (r"^stem_(conv|norm)$", _BACKBONE + r".stem.\1"),
+    (r"^stages_(\d+)_blocks_(\d+)\.downsample_(conv|norm)$",
+     _BACKBONE + r".stages.\1.blocks.\2.downsample.\3"),
+    (r"^stages_(\d+)_blocks_(\d+)\.", _BACKBONE + r".stages.\1.blocks.\2."),
+    (r"^patch_embed_proj$", "pretrained.model.patch_embed.proj"),
+    (r"^$", "pretrained.model"),  # cls_token, pos_embed
+    (r"^vit_blocks_(\d+)\.(attn|mlp)_(qkv|proj|fc1|fc2)$", r"pretrained.model.blocks.\1.\2.\3"),
+    (r"^vit_blocks_(\d+)\.", r"pretrained.model.blocks.\1."),
+    (r"^postprocess(3|4)_readout$", r"pretrained.act_postprocess\1.0.project.0"),
+    (r"^postprocess(3|4)_proj$", r"pretrained.act_postprocess\1.3"),
+    (r"^postprocess4_down$", "pretrained.act_postprocess4.4"),
+    (r"^(layer\d_rn)$", r"scratch.\1"),
+    (r"^refinenet(\d)\.res_conv_unit(\d)\.", r"scratch.refinenet\1.resConfUnit\2."),
+    (r"^refinenet(\d)\.", r"scratch.refinenet\1."),
+    (r"^head_conv1$", "scratch.output_conv.0"),
+    (r"^head_conv2$", "scratch.output_conv.2"),
+    (r"^head_conv3$", "scratch.output_conv.4"),
+))
+
+
+def dpt_torch_key(path: Tuple[str, ...]) -> str:
+    """The port's DPT state-dict key (the MiDaS checkpoint name) for one
+    flax parameter path of ``live2diff_tpu.models.midas.DPTDepthModel``."""
+    *mods, leaf = [p for p in path if p != "params"]
+    if len(mods) >= 2 and mods[-1] == "norm":
+        mods = mods[:-1]  # GNReLU wrapper
+    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    mod = ".".join(mods)
+    for pattern, repl in _DPT_RENAMES:
+        if pattern.search(mod):
+            return f"{pattern.sub(repl, mod, count=1)}.{leaf}"
+    raise KeyError(f"no DPT checkpoint name for flax path {path}")
+
+
 def _convert(arr: np.ndarray, leaf: str) -> np.ndarray:
     if leaf == "kernel" and arr.ndim == 4:
         return np.transpose(arr, (3, 2, 0, 1))
@@ -75,11 +118,15 @@ def _convert(arr: np.ndarray, leaf: str) -> np.ndarray:
     return arr
 
 
-def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(
+    params: Mapping, key: Callable[[Tuple[str, ...]], str] = torch_key
+) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (leaves convertible by ``np.asarray``) -> a
-    state dict for the matching port module, fp32 on the CPU."""
+    state dict for the matching port module, fp32 on the CPU. ``key`` names
+    each parameter: ``torch_key`` for the UNet and TAESD, ``dpt_torch_key``
+    for the DPT."""
     out = {}
     for path, leaf in _flatten(params):
         arr = _convert(np.asarray(leaf, dtype=np.float32), path[-1])
-        out[torch_key(path)] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+        out[key(path)] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out

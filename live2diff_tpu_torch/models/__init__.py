@@ -1,1 +1,1 @@
-"""UNet, motion modules and TAESD codec, channels-last."""
+"""UNet, motion modules, TAESD codec and DPT-hybrid depth model, channels-last."""

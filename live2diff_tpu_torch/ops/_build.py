@@ -38,9 +38,11 @@ _LOCK = threading.Lock()
 # nowhere else; chip_smoke.py zeroes them around the main path
 launch_counts: Dict[str, int] = {
     "stream_attention_int8": 0,
+    "stream_attention_bf16": 0,
     "flash_attention": 0,
     "conv3x3": 0,
     "conv3x3_s2": 0,
+    "layer_norm": 0,
 }
 
 

@@ -8,9 +8,9 @@ Port of ``live2diff_tpu/ops/attention.py``. Two functions:
   raises there. On the CPU it runs the plain dense version.
 * ``stream_window_attention``: one new frame's temporal attention over the
   streaming KV cache, with the positional encodings factored out of the
-  cache. An int8 cache goes through the int8 stream-attention kernel on
-  CUDA; a float cache runs the plain version on the CPU and raises on CUDA
-  until its kernel is ported.
+  cache. On CUDA an int8 cache goes through the int8 stream-attention
+  kernel and a bf16 cache through its bf16 twin; any other cache dtype
+  raises there. On the CPU it runs the plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ import torch
 
 from ..stream.state import KVCache
 from .flash_attention import flash_attention, flash_attention_plain
-from .stream_attention import stream_window_attention_int8, stream_window_attention_plain
+from .stream_attention import (
+    stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
+)
 
 
 def dot_product_attention(
@@ -94,9 +96,14 @@ def stream_window_attention(
             q_full.contiguous(), cache_data, kv_cache[1], extra.contiguous(),
             pe_v.float().contiguous(), scale, heads,
         )
-    if q.is_cuda:
-        raise NotImplementedError(
-            "stream attention over a float KV cache has no CUDA kernel yet; "
-            "use kv_cache_dtype='int8'"
+    if not q.is_cuda:
+        return stream_window_attention_plain(q_full, cache_data, None, extra, pe_v, scale, heads)
+    if cache_data.dtype != torch.bfloat16:
+        raise TypeError(
+            f"stream attention on CUDA takes an int8 or bf16 KV cache, got {cache_data.dtype}; "
+            "use kv_cache_dtype='int8' or 'bf16'"
         )
-    return stream_window_attention_plain(q_full, cache_data, None, extra, pe_v, scale, heads)
+    return stream_window_attention_bf16(
+        q_full.contiguous(), cache_data, extra.contiguous(), pe_v.float().contiguous(),
+        scale, heads,
+    )

@@ -1,19 +1,23 @@
-"""Stream window attention over the int8 KV cache: kernel wrapper and plain version.
+"""Stream window attention over the KV cache: kernel wrappers and plain version.
 
 The hot per-frame op of the motion modules: each (step, spatial position,
-head) attends over its own 16-slot temporal window of the cache. The CUDA
-kernel (``csrc/stream_attention.cu``) replaces the Pallas TPU kernel
-``live2diff_tpu/ops/stream_attention.py:stream_window_attention_kernel_int8``;
+head) attends over its own 16-slot temporal window of the cache. One CUDA
+kernel template (``csrc/stream_attention.cu``) replaces both Pallas TPU
+kernels of ``live2diff_tpu/ops/stream_attention.py``:
+``stream_window_attention_int8`` the int8-cache one
+(``stream_window_attention_kernel_int8``), ``stream_window_attention_bf16``
+the bf16-cache one (``stream_window_attention_kernel``).
 ``stream_window_attention_plain`` computes the same function in plain
 torch, as the JAX package's non-TPU path does (``ops/attention.py:220-243``).
 
 Math, with the positional encodings factored out of the cache:
 
-    logits = scale * q_full . (k8 * k_scale)  +  extra
+    logits = scale * q_full . (k * k_scale)  +  extra
     probs  = softmax over the window (fp32)
-    out    = probs . (v8 * v_scale + pe_v)
+    out    = probs . (v * v_scale + pe_v)
 
-``extra`` = scale * q_full . pe_k + visibility bias, computed by the caller.
+(no scales for a float cache). ``extra`` = scale * q_full . pe_k +
+visibility bias, computed by the caller.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from . import _build
 
-NAME = "stream_attention_int8"
+NAME_INT8 = "stream_attention_int8"
+NAME_BF16 = "stream_attention_bf16"
 
 
 def stream_window_attention_plain(
@@ -61,6 +66,45 @@ def stream_window_attention_plain(
     return out.to(dt).reshape(s, hw, c)
 
 
+def _launch(name, q_full, cache_data, scales, extra, pe_v, scale, heads) -> torch.Tensor:
+    """Check the arguments the kernel takes, launch it, count the launch."""
+    s, hw, c = q_full.shape
+    window = cache_data.shape[2]
+    _build.require(q_full, "q_full", torch.bfloat16, 3)
+    _build.require(cache_data, "cache_data", torch.int8 if scales is not None else torch.bfloat16, 5)
+    if scales is not None:
+        _build.require(scales, "scales", torch.float32, 4)
+    _build.require(extra, "extra", torch.float32, 4)
+    _build.require(pe_v, "pe_v", torch.float32, 3)
+    if (
+        tuple(cache_data.shape) != (s, 2, window, c, hw)
+        or (scales is not None and tuple(scales.shape) != (s, 2, window, c))
+        or tuple(extra.shape) != (s, window, heads, hw)
+        or tuple(pe_v.shape) != (s, window, c)
+        or window != 16
+        or c % heads
+    ):
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q_full.shape)}, "
+            f"cache {tuple(cache_data.shape)}, "
+            f"scales {None if scales is None else tuple(scales.shape)}, "
+            f"extra {tuple(extra.shape)}, pe_v {tuple(pe_v.shape)}, heads {heads}"
+        )
+    out = torch.empty_like(q_full)
+    fn = getattr(_build.load("stream_attention"), name)
+    ptrs = [q_full.data_ptr(), cache_data.data_ptr()]
+    if scales is not None:
+        ptrs.append(scales.data_ptr())
+    ptrs += [extra.data_ptr(), pe_v.data_ptr(), out.data_ptr()]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(*ptrs, s, window, c, hw, heads, float(scale), _build.stream_handle(q_full))
+    _build.check(rc, name)
+    _build.launch_counts[name] += 1
+    return out
+
+
 def stream_window_attention_int8(
     q_full: torch.Tensor,  # [s, HW, C] bf16
     cache_data: torch.Tensor,  # [s, 2, 16, C, HW] int8
@@ -70,42 +114,27 @@ def stream_window_attention_int8(
     scale: float,
     heads: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; a CPU tensor runs the plain
-    version. Returns [s, HW, C] in q's dtype."""
+    """Launch the int8-cache kernel on CUDA tensors; a CPU tensor runs the
+    plain version. Returns [s, HW, C] in q's dtype."""
     if not q_full.is_cuda:
         return stream_window_attention_plain(
             q_full, cache_data, scales, extra, pe_v, scale, heads
         )
-    s, hw, c = q_full.shape
-    window = cache_data.shape[2]
-    _build.require(q_full, "q_full", torch.bfloat16, 3)
-    _build.require(cache_data, "cache_data", torch.int8, 5)
-    _build.require(scales, "scales", torch.float32, 4)
-    _build.require(extra, "extra", torch.float32, 4)
-    _build.require(pe_v, "pe_v", torch.float32, 3)
-    if (
-        tuple(cache_data.shape) != (s, 2, window, c, hw)
-        or tuple(scales.shape) != (s, 2, window, c)
-        or tuple(extra.shape) != (s, window, heads, hw)
-        or tuple(pe_v.shape) != (s, window, c)
-        or window != 16
-        or c % heads
-    ):
-        raise ValueError(
-            f"stream_window_attention_int8: unsupported shapes q {tuple(q_full.shape)}, "
-            f"cache {tuple(cache_data.shape)}, scales {tuple(scales.shape)}, "
-            f"extra {tuple(extra.shape)}, pe_v {tuple(pe_v.shape)}, heads {heads}"
+    return _launch(NAME_INT8, q_full, cache_data, scales, extra, pe_v, scale, heads)
+
+
+def stream_window_attention_bf16(
+    q_full: torch.Tensor,  # [s, HW, C] bf16
+    cache_data: torch.Tensor,  # [s, 2, 16, C, HW] bf16
+    extra: torch.Tensor,  # [s, 16, heads, HW] f32
+    pe_v: torch.Tensor,  # [s, 16, C] f32
+    scale: float,
+    heads: int,
+) -> torch.Tensor:
+    """Launch the bf16-cache kernel on CUDA tensors; a CPU tensor runs the
+    plain version. Returns [s, HW, C] in q's dtype."""
+    if not q_full.is_cuda:
+        return stream_window_attention_plain(
+            q_full, cache_data, None, extra, pe_v, scale, heads
         )
-    out = torch.empty_like(q_full)
-    lib = _build.load("stream_attention")
-    fn = lib.stream_attention_int8
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q_full.data_ptr(), cache_data.data_ptr(), scales.data_ptr(), extra.data_ptr(),
-        pe_v.data_ptr(), out.data_ptr(), s, window, c, hw, heads, float(scale),
-        _build.stream_handle(q_full),
-    )
-    _build.check(rc, NAME)
-    _build.launch_counts[NAME] += 1
-    return out
+    return _launch(NAME_BF16, q_full, cache_data, None, extra, pe_v, scale, heads)

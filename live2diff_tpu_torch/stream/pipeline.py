@@ -1,11 +1,13 @@
 """StreamDiffusionDepth: the per-frame stream runtime, in torch.
 
-Port of ``live2diff_tpu/stream/pipeline.py`` for the configuration without
-a depth model (the depth latents are zeros; the depth-mapping branch of the
-UNet still runs). One streamed frame is:
+Port of ``live2diff_tpu/stream/pipeline.py``. One streamed frame is:
 
-    encode (TAESD) -> stream-batch UNet over the n denoising steps ->
-    LCM consistency step -> decode (TAESD)
+    depth (DPT at 384x384) -> one encode (TAESD) of frame and depth image ->
+    stream-batch UNet over the n denoising steps -> LCM consistency step ->
+    decode (TAESD)
+
+Without a depth model the depth latents are zeros (the depth-mapping
+branch of the UNet still runs) and the encode takes the frame alone.
 
 Stream-batch semantics (StreamDiffusion): the UNet batch carries the ``n``
 denoising steps of ``n`` consecutive frames, the new frame at the noisiest
@@ -27,6 +29,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.midas import DPTDepthModel, resize_nhwc
 from ..models.unet import UNet3DConditionModel
 from ..models.vae import TinyAutoencoder
 from ..schedule import LCMSchedule
@@ -57,11 +60,16 @@ class StreamConfig:
 
 
 class StreamDiffusionDepth:
-    """Runs the UNet and TAESD modules as the stream's warmup and frame steps.
+    """Runs the UNet, TAESD and (optional) DPT modules as the stream's warmup
+    and frame steps.
 
-    ``dtype`` is the modules' compute dtype; latents, schedule math and the
-    stream buffers stay fp32, as in the JAX package.
+    ``dtype`` is the modules' compute dtype; latents, schedule math, the
+    depth normalisation and the stream buffers stay fp32, as in the JAX
+    package.
     """
+
+    # the depth model's input size (the reference's MiDaS transform)
+    DEPTH_SIZE = 384
 
     def __init__(
         self,
@@ -71,8 +79,9 @@ class StreamDiffusionDepth:
         stream_config: StreamConfig,
         device: torch.device,
         dtype: torch.dtype = torch.bfloat16,
+        depth_model: Optional[DPTDepthModel] = None,
     ):
-        self.unet, self.vae = unet, vae
+        self.unet, self.vae, self.depth_model = unet, vae, depth_model
         self.schedule, self.cfg = schedule, stream_config
         self.device, self.dtype = torch.device(device), dtype
         self.num_steps = n = schedule.num_steps
@@ -125,14 +134,37 @@ class StreamDiffusionDepth:
     # latent codecs
     # ------------------------------------------------------------------
 
+    def _depth_image(self, frames_rgb: torch.Tensor) -> torch.Tensor:
+        """[F, H, W, 3] in [-1, 1] -> 3-channel depth image in [-1, 1], fp32.
+
+        Bilinear (no antialiasing) down to 384x384, the DPT, min-max
+        normalisation over the whole batch (every frame of ``prepare``'s
+        warmup together), replicated to 3 channels, and resized back to
+        H x W."""
+        f, h, w, _ = frames_rgb.shape
+        depth_in = resize_nhwc(frames_rgb.float(), self.DEPTH_SIZE, self.DEPTH_SIZE)
+        depth = self.depth_model(depth_in.to(self.dtype)).float()  # [F, 384, 384]
+        dmin, dmax = depth.min(), depth.max()
+        depth = (depth - dmin) / (dmax - dmin + 1e-6)
+        depth3 = depth[..., None].expand(f, self.DEPTH_SIZE, self.DEPTH_SIZE, 3) * 2.0 - 1.0
+        return resize_nhwc(depth3, h, w)
+
     def _encode_frame_and_depth(self, state, frames_rgb: torch.Tensor, noise):
         """[F, H, W, 3] in [-1, 1] -> (x_t noised at t0, depth latents).
-        Without a depth model the depth latents are zeros."""
-        latents = self.vae.encode(frames_rgb.to(self.dtype).contiguous()).float()
-        latents = latents * self.cfg.vae_scaling
+
+        With a depth model, frames and depth images go through ONE batched
+        encode (frames first) and the latents are split after it; without
+        one the depth latents are zeros."""
+        f = frames_rgb.shape[0]
+        if self.depth_model is not None:
+            frames_rgb = torch.cat([frames_rgb.float(), self._depth_image(frames_rgb)], dim=0)
+        lat = self.vae.encode(frames_rgb.to(self.dtype).contiguous()).float()
+        lat = lat * self.cfg.vae_scaling
+        latents = lat[:f]
+        depth_lat = lat[f:] if self.depth_model is not None else torch.zeros_like(latents)
         eps = self._randn(state, latents.shape, noise)
         x_t = self.alpha[0] * latents + self.beta[0] * eps
-        return x_t, torch.zeros_like(latents)
+        return x_t, depth_lat
 
     def _decode_latents(self, x0: torch.Tensor) -> torch.Tensor:
         img = self.vae.decode((x0 / self.cfg.vae_scaling).to(self.dtype)).float()

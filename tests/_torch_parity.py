@@ -15,11 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from live2diff_tpu.models.midas import DPTConfig as JaxDPTConfig
+from live2diff_tpu.models.midas import DPTDepthModel as JaxDPTDepthModel
 from live2diff_tpu.models.unet import UNet3DConditionModel as JaxUNet
 from live2diff_tpu.models.unet import UNetConfig as JaxUNetConfig
 from live2diff_tpu.models.vae import TinyAutoencoder as JaxTinyAutoencoder
 from live2diff_tpu.stream.state_machine import init_window_state, mask_to_bias
-from live2diff_tpu_torch.convert.from_jax import params_from_jax
+from live2diff_tpu_torch.convert.from_jax import dpt_torch_key, params_from_jax
 
 # the tiny configuration of tests/conftest.py's tiny_pipeline fixture
 TINY_UNET = dict(
@@ -29,6 +31,15 @@ TINY_UNET = dict(
 TINY_H = TINY_W = 64  # latent 8x8
 PROMPT_LEN = 7
 VAE_HIDDEN = 8
+
+# DPT configs: tests/test_midas.py's tiny one (96x96 input), and a narrow
+# one at the 384x384 input the stream's depth branch fixes. The ResNet
+# widths (64/256/512/1024) are fixed by the model, so the narrow DPT holds
+# 7.5 M parameters.
+TINY_DPT = dict(image_size=96, patch_grid=6, vit_hidden=16, vit_layers=4, vit_heads=2,
+                vit_mlp=32, hooks=(1, 3), resnet_layers=(1, 1, 1), features=8)
+NARROW_DPT = dict(image_size=384, patch_grid=24, vit_hidden=16, vit_layers=2, vit_heads=2,
+                  vit_mlp=32, hooks=(0, 1), resnet_layers=(1, 1, 1), features=8)
 
 torch.set_num_threads(2)
 
@@ -75,6 +86,24 @@ def jax_taesd(seed: int = 1):
         lambda: vae.init(jax.random.PRNGKey(1), jnp.zeros((1, TINY_H, TINY_W, 3)))
     )
     return vae, random_params_like(shapes, seed)
+
+
+def jax_dpt(cfg: dict, seed: int = 2):
+    """(flax module, params) of an fp32 DPT at config ``cfg``."""
+    dpt = JaxDPTDepthModel(config=JaxDPTConfig(**cfg), dtype=jnp.float32)
+    size = cfg["image_size"]
+    shapes = jax.eval_shape(
+        lambda: dpt.init(jax.random.PRNGKey(2), jnp.zeros((1, size, size, 3)))
+    )
+    return dpt, random_params_like(shapes, seed)
+
+
+def port_dpt(params, cfg: dict):
+    from live2diff_tpu_torch.models.midas import DPTConfig, DPTDepthModel
+
+    dpt = DPTDepthModel(DPTConfig(**cfg))
+    dpt.load_state_dict(params_from_jax(params, key=dpt_torch_key), strict=True)
+    return dpt.eval()
 
 
 def port_unet(params):

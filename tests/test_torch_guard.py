@@ -16,8 +16,9 @@ import live2diff_tpu_torch
 from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from live2diff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from live2diff_tpu_torch.ops.norm import layer_norm, layer_norm_plain
 from live2diff_tpu_torch.ops.stream_attention import (
-    stream_window_attention_int8, stream_window_attention_plain,
+    stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
 )
 
 PKG_DIR = os.path.dirname(live2diff_tpu_torch.__file__)
@@ -65,10 +66,11 @@ def test_build_pipeline_refuses_to_fall_back_to_the_cpu(monkeypatch):
 
 
 def test_build_pipeline_depth_raises_with_the_roadmap_item():
+    """Depth is ported; the full KL codec is not, and says where it stands."""
     from live2diff_tpu_torch.builder import build_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_pipeline({"t_index_list": [30, 40]}, use_depth=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
+        build_pipeline({"t_index_list": [30, 40]}, use_tiny_vae=False, device="cpu")
 
 
 def test_wrappers_run_the_plain_version_on_cpu_tensors(monkeypatch):
@@ -91,6 +93,14 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors(monkeypatch):
     args = (t(2, 8, 16), data, t(2, 2, 16, 16).abs(), t(2, 16, 2, 8), t(2, 16, 16), 0.25, 2)
     torch.testing.assert_close(stream_window_attention_int8(*args),
                                stream_window_attention_plain(*args))
+    cache = t(2, 2, 16, 16, 8).to(torch.bfloat16)
+    args = (t(2, 8, 16), cache, t(2, 16, 2, 8), t(2, 16, 16), 0.25, 2)
+    torch.testing.assert_close(stream_window_attention_bf16(*args),
+                               stream_window_attention_plain(args[0], cache, None, *args[2:]))
+
+    x, g, b = t(37, 64), t(64), t(64)
+    torch.testing.assert_close(layer_norm(x, g, b, 1e-6, site="vit"),
+                               layer_norm_plain(x, g, b, 1e-6))
     assert _build.launch_counts == before
 
 
@@ -107,7 +117,8 @@ def test_build_pipeline_on_cpu_streams_uint8_frames():
         }},
     }
     built = build_pipeline(config, 64, 64, dtype=torch.float32, kv_cache_dtype="int8",
-                           output_uint8=True, seed=0, device="cpu", unet_overrides=tiny)
+                           output_uint8=True, seed=0, device="cpu", unet_overrides=tiny,
+                           use_depth=False)
     assert built.stream.cfg.cache_dtype == torch.int8
     warm = torch.rand(8, 64, 64, 3) * 2 - 1
     state, warm_out = built.stream.prepare(warm, torch.randn(1, 7, 12), seed=3)

@@ -4,15 +4,17 @@ These need an NVIDIA Hopper GPU and ``nvcc``; without a CUDA device each
 test skips. They complement ``chip_smoke.py`` (which checks the production
 shapes of the 512x512 stream step) with ragged shapes: lengths that are not
 multiples of the kernels' tiles, every head width the flash kernel takes,
-channel counts that take the conv kernel's scalar load path, and the
-wrappers' refusals. Run them on the card, from the repository root:
+channel counts that take the conv kernel's scalar load path, row counts
+that are not a multiple of the LayerNorm kernel's 8 rows a block, both
+cache dtypes of stream attention, and the wrappers' refusals. Run them on the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: tests/conftest.py sets up JAX, which this file does not
 use.) Tolerances are relative to the plain version's largest value: the
 kernels round the same bf16 operands at other points (probabilities, the
-dequantised cache) and sum in another order, ~2^-8 relative at worst.
+dequantised cache) and sum in another order, ~2^-8 relative at worst;
+LayerNorm rounds its output to bf16 once (2^-9).
 """
 
 from __future__ import annotations
@@ -24,14 +26,16 @@ from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops.attention import dot_product_attention, stream_window_attention
 from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from live2diff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from live2diff_tpu_torch.ops.norm import layer_norm, layer_norm_plain, layer_norm_rows
 from live2diff_tpu_torch.ops.stream_attention import (
-    stream_window_attention_int8, stream_window_attention_plain,
+    stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
 )
 
 pytestmark = pytest.mark.cuda
 
 ATTN_TOL = 2e-2
 CONV_TOL = 1e-2
+LN_TOL = 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -122,6 +126,41 @@ def test_stream_attention_int8_matches_plain(dev, s, hw, c, heads):
     assert _rel(out, stream_window_attention_plain(*args)) < ATTN_TOL
 
 
+@pytest.mark.parametrize("s,hw,c,heads", [(2, 100, 320, 8), (1, 33, 64, 2), (2, 64, 1280, 8),
+                                          (3, 7, 16, 1)])
+def test_stream_attention_bf16_matches_plain(dev, s, hw, c, heads):
+    gen = torch.Generator(device=dev).manual_seed(hw * 10 + c + 1)
+    q = _randn(gen, dev, s, hw, c).to(torch.bfloat16)
+    cache = _randn(gen, dev, s, 2, 16, c, hw).to(torch.bfloat16)
+    extra = _randn(gen, dev, s, 16, heads, hw)
+    extra[:, 10:] = float("-inf")  # slots not yet visible; the sink always is
+    pe_v = _randn(gen, dev, s, 16, c)
+    args = (q, cache, extra, pe_v, (c // heads) ** -0.5, heads)
+    before = _build.launch_counts["stream_attention_bf16"]
+    out = stream_window_attention_bf16(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["stream_attention_bf16"] == before + 1
+    ref = stream_window_attention_plain(q, cache, None, *args[2:])
+    assert _rel(out, ref) < ATTN_TOL
+
+
+@pytest.mark.parametrize("rows", [1, 13, 577, 4616])
+@pytest.mark.parametrize("c", [16, 64, 768, 1024])
+def test_layer_norm_matches_plain(dev, rows, c):
+    gen = torch.Generator(device=dev).manual_seed(rows * 10 + c)
+    x = (_randn(gen, dev, rows, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    b = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    before = _build.launch_counts["layer_norm"]
+    out = layer_norm(x, g, b, 1e-6, site="vit")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["layer_norm"] == before + 1
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert _rel(out, layer_norm_plain(x, g, b, 1e-6)) < LN_TOL
+    layer_norm(x, g, b, 1e-6, site="spatial")  # the UNet sites stay plain
+    assert _build.launch_counts["layer_norm"] == before + 1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 2, 112, device=dev, dtype=torch.bfloat16)  # D = 112: no tile width
     with pytest.raises(ValueError):
@@ -133,11 +172,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         conv3x3(x, torch.zeros(32, 64, 3, 3, device=dev, dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError):  # a bias has no kernel yet
         dot_product_attention(q[..., :64], q[..., :64], q[..., :64], bias=torch.zeros((), device=dev))
+    with pytest.raises(ValueError):  # C % 8 != 0
+        layer_norm_rows(torch.zeros(4, 20, device=dev, dtype=torch.bfloat16),
+                        torch.ones(20, device=dev, dtype=torch.bfloat16),
+                        torch.zeros(20, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # C > 1024
+        layer_norm_rows(torch.zeros(4, 2048, device=dev, dtype=torch.bfloat16),
+                        torch.ones(2048, device=dev, dtype=torch.bfloat16),
+                        torch.zeros(2048, device=dev, dtype=torch.bfloat16))
     s, hw, c = 2, 8, 16
-    with pytest.raises(NotImplementedError):  # a float cache has no kernel yet
+    with pytest.raises(TypeError, match="int8 or bf16"):  # an fp32 cache has no kernel
         stream_window_attention(
             torch.zeros(s, hw, c, device=dev, dtype=torch.bfloat16),
-            torch.zeros(s, 2, 16, c, hw, device=dev, dtype=torch.bfloat16),
+            torch.zeros(s, 2, 16, c, hw, device=dev, dtype=torch.float32),
             torch.zeros(s, c, device=dev), torch.zeros(s, 16, c, device=dev),
             torch.zeros(s, 16, c, device=dev), torch.zeros(s, 16, device=dev), 2,
         )

@@ -1,4 +1,5 @@
-"""The port's ops against the JAX package's: attention, convs, int8 quantisation.
+"""The port's ops against the JAX package's: attention, convs, LayerNorm,
+int8 quantisation.
 
 On the CPU each kernel wrapper runs its plain torch version; these tests
 hold that version (and the op around it) against the JAX function on the
@@ -23,16 +24,23 @@ from _torch_parity import rel_err
 from live2diff_tpu.models.motion import _quantize_kv as jax_quantize_kv
 from live2diff_tpu.ops.conv import conv3x3_fused, conv3x3_s2_fused
 from live2diff_tpu.ops.flash_attention import flash_self_attention_dmajor
-from live2diff_tpu.ops.stream_attention import stream_window_attention_kernel_int8
+from live2diff_tpu.ops.norm import _layer_norm_kernel
+from live2diff_tpu.ops.norm import layer_norm as jax_layer_norm
+from live2diff_tpu.ops.stream_attention import (
+    stream_window_attention_kernel, stream_window_attention_kernel_int8,
+)
 from live2diff_tpu_torch.models.motion import _quantize_kv
 from live2diff_tpu_torch.ops import attention as tattn
 from live2diff_tpu_torch.ops.conv import conv3x3
-from live2diff_tpu_torch.ops.stream_attention import stream_window_attention_int8
+from live2diff_tpu_torch.ops.norm import layer_norm
+from live2diff_tpu_torch.ops.stream_attention import (
+    stream_window_attention_bf16, stream_window_attention_int8,
+)
 
 T = torch.from_numpy
 
 
-def _stream_inputs(rs, s=2, hw=64, heads=4, dh=8, window=16, int8=False):
+def _stream_inputs(rs, s=2, hw=64, heads=4, dh=8, window=16, cache="fp32"):
     c = heads * dh
     q = rs.randn(s, hw, c).astype(np.float32)
     pe_q = rs.randn(s, c).astype(np.float32)
@@ -41,20 +49,37 @@ def _stream_inputs(rs, s=2, hw=64, heads=4, dh=8, window=16, int8=False):
     # -inf on masked slots; the 8 sink slots always visible
     bias = np.where(rs.rand(s, window) > 0.4, 0.0, -np.inf).astype(np.float32)
     bias[:, :8] = 0.0
-    if int8:
+    if cache == "int8":
         data = rs.randint(-127, 128, size=(s, 2, window, c, hw)).astype(np.int8)
         scales = (0.005 + 0.02 * rs.rand(s, 2, window, c)).astype(np.float32)
-        cache = (data, scales)
+        kv = (data, scales)
     else:
-        cache = rs.randn(s, 2, window, c, hw).astype(np.float32)
-    return q, cache, pe_q, pe_k, pe_v, bias, heads
+        kv = rs.randn(s, 2, window, c, hw).astype(np.float32)
+    return q, kv, pe_q, pe_k, pe_v, bias, heads
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_stream_window_attention_matches_jax(int8):
-    q, cache, pe_q, pe_k, pe_v, bias, heads = _stream_inputs(np.random.RandomState(1), int8=int8)
-    jcache = tuple(map(jnp.asarray, cache)) if int8 else jnp.asarray(cache)
-    tcache = tuple(map(T, cache)) if int8 else T(cache)
+def _bf16_pair(arr):
+    """One fp32 numpy array as a bf16 array on each side; both round to
+    nearest even, so the two hold the same values."""
+    jarr, tarr = jnp.asarray(arr).astype(jnp.bfloat16), T(arr).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(jarr.astype(jnp.float32)), tarr.float().numpy())
+    return jarr, tarr
+
+
+# The bf16 case keeps q and the PE rows in fp32 and stores the cache in bf16
+# on both sides: the same rounded cache values meet the same fp32 math, so
+# the fp32 tolerance holds unchanged (the cache's own bf16 rounding, ~2^-9
+# relative, is common to both and cancels from the comparison). The ids
+# False / True name the fp32 and int8 cases, as whether the cache is int8.
+@pytest.mark.parametrize("cache", ["fp32", "int8", "bf16"], ids=["False", "True", "bf16"])
+def test_stream_window_attention_matches_jax(cache):
+    q, kv, pe_q, pe_k, pe_v, bias, heads = _stream_inputs(np.random.RandomState(1), cache=cache)
+    if cache == "int8":
+        jcache, tcache = tuple(map(jnp.asarray, kv)), tuple(map(T, kv))
+    elif cache == "bf16":
+        jcache, tcache = _bf16_pair(kv)
+    else:
+        jcache, tcache = jnp.asarray(kv), T(kv)
     ref = jattn.stream_window_attention(
         jnp.asarray(q), jcache, jnp.asarray(pe_q), jnp.asarray(pe_k), jnp.asarray(pe_v),
         jnp.asarray(bias), heads,
@@ -64,17 +89,22 @@ def test_stream_window_attention_matches_jax(int8):
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
-def test_stream_attention_int8_plain_matches_pallas_interpret():
-    """Kernel #1's plain version == the Pallas int8 kernel (interpret mode)."""
-    rs = np.random.RandomState(2)
-    q, (data, scales), pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=128, int8=True)
+def _kernel_args(q, pe_q, pe_k, bias, heads):
+    """(q_full, extra, scale) as ops/attention.py hands them to the kernels."""
     s, hw, c = q.shape
     scale = (c // heads) ** -0.5
     q_full = q + pe_q[:, None, :]
     extra = np.einsum(
         "sphd,swhd->swhp", q_full.reshape(s, hw, heads, -1), pe_k.reshape(s, 16, heads, -1)
     ) * scale + bias[:, :, None, None]
-    extra = extra.astype(np.float32)
+    return q_full, extra.astype(np.float32), scale
+
+
+def test_stream_attention_int8_plain_matches_pallas_interpret():
+    """Kernel #1's plain version == the Pallas int8 kernel (interpret mode)."""
+    rs = np.random.RandomState(2)
+    q, (data, scales), pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=128, cache="int8")
+    q_full, extra, scale = _kernel_args(q, pe_q, pe_k, bias, heads)
     with pltpu.force_tpu_interpret_mode():
         ref = stream_window_attention_kernel_int8(
             jnp.asarray(q_full.transpose(0, 2, 1)), jnp.asarray(data), jnp.asarray(extra),
@@ -85,6 +115,51 @@ def test_stream_attention_int8_plain_matches_pallas_interpret():
         T(q_full), T(data), T(scales), T(extra), T(pe_v), scale, heads
     )
     assert rel_err(out.numpy(), np.asarray(ref).transpose(0, 2, 1)) < 1e-4
+
+
+def test_stream_attention_bf16_plain_matches_pallas_interpret():
+    """Kernel #2's plain version == the Pallas bf16-cache kernel (interpret
+    mode): an fp32 query over the same bf16 cache on both sides. 1e-4: the
+    Pallas kernel reassociates the head reduction through a mask matmul."""
+    rs = np.random.RandomState(9)
+    q, kv, pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=128, cache="bf16")
+    q_full, extra, scale = _kernel_args(q, pe_q, pe_k, bias, heads)
+    jcache, tcache = _bf16_pair(kv)
+    with pltpu.force_tpu_interpret_mode():
+        ref = stream_window_attention_kernel(
+            jnp.asarray(q_full.transpose(0, 2, 1)), jcache, jnp.asarray(extra),
+            jnp.asarray(pe_v.transpose(0, 2, 1)), scale=scale, heads=heads,
+        )
+    out = stream_window_attention_bf16(T(q_full), tcache, T(extra), T(pe_v), scale, heads)
+    assert rel_err(out.numpy(), np.asarray(ref).transpose(0, 2, 1)) < 1e-4
+
+
+# LayerNorm in fp32: both sides take the same centred two-pass statistics,
+# so only summation order differs (1e-5 relative). 77 and 37 rows are not
+# multiples of the Pallas kernel's 16-row block: its padded tail is run.
+@pytest.mark.parametrize("rows,c,site", [(77, 64, "vit"), (37, 16, "vit"), (77, 64, "spatial")])
+def test_layer_norm_matches_jax(rows, c, site):
+    rs = np.random.RandomState(10)
+    x = (rs.randn(rows, c) * 2.0 + 3.0).astype(np.float32)  # |mean| > std
+    g = (1.0 + 0.1 * rs.randn(c)).astype(np.float32)
+    b = (0.05 * rs.randn(c)).astype(np.float32)
+    ref = jax_layer_norm(*map(jnp.asarray, (x, g, b)), eps=1e-6, site=site)
+    out = layer_norm(T(x), T(g), T(b), eps=1e-6, site=site)
+    assert out.shape == x.shape
+    assert rel_err(out.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("rows,c", [(77, 64), (37, 16), (20, 768)])
+def test_layer_norm_plain_matches_pallas_interpret(rows, c):
+    """Kernel #9's plain version == the Pallas LayerNorm kernel."""
+    rs = np.random.RandomState(11)
+    x = (rs.randn(rows, c) + 1.0).astype(np.float32)
+    g = (1.0 + 0.1 * rs.randn(c)).astype(np.float32)
+    b = (0.05 * rs.randn(c)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _layer_norm_kernel(*map(jnp.asarray, (x, g, b)), eps=1e-6)
+    out = layer_norm(T(x), T(g), T(b), eps=1e-6, site="vit")
+    assert rel_err(out.numpy(), ref) < 1e-5
 
 
 @pytest.mark.parametrize("shape_q,shape_k", [
