@@ -8,9 +8,11 @@ Phases, each printed as it ends; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build the port's CUDA kernels with nvcc.
 2. kernels: each hand-written kernel against its plain torch version on the
-   card, at every shape the 512x512 stream step and ``prepare`` give it,
-   with its time, the plain version's time, one library call's time as a
-   yardstick (never used by the port), and its roofline bound.
+   card, at every shape the 512x512 and 768x512 stream steps and
+   ``prepare`` give it, with its time, the plain version's time, one
+   library call's time as a yardstick (never used by the port), and its
+   roofline bound. The GroupNorm kernel is checked after phase 7, at the
+   shapes that phase recorded.
 3. small input: a narrow pipeline (64x64 frames, a narrow 384x384 DPT) on
    the card, bf16 with the kernels, against the same weights and noise in
    fp32 on the CPU.
@@ -22,6 +24,19 @@ Phases, each printed as it ends; any failure exits non-zero:
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
    the bf16 stream-attention kernel's launches asserted.
+6. int8 QK: phase 4 with ``flash_variant="int8"`` (bench.py's
+   ``--spatial-qk int8``): 32 frames, profiled; the int8-QK flash kernel
+   takes the 10 self-attentions a step that pass the flash gate.
+7. GroupNorm kernel: phase 4 with ``gn_kernel_sites="all"``: 16 frames,
+   profiled, beside phase 4's frame times and device profile; every
+   GroupNorm module whose input meets the JAX conditions launches the
+   kernel once (counted by hooks on the modules over ``prepare`` and one
+   step), then the kernel is checked at each shape it saw. The pipelines
+   of phases 4, 6 and 7 then stream 30 more frames each in turn, so that
+   their frame times can be compared under the same host conditions.
+8. 768x512: bench.py's second row (``--width 768 --height 512``) with
+   ``flash_variant="smajor"``: 8 frames; the s-major flash kernel takes the
+   10 gated self-attentions a step, at S = 6144 and 1536.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -39,7 +54,8 @@ import sys
 import time
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
-PEAK = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside tensor cores
+# dense tensor-core bf16 and int8; fp32 outside tensor cores
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
 TF32_OFF = "torch.backends.cudnn.allow_tf32 = False; torch.backends.cuda.matmul.allow_tf32 = False"
@@ -62,19 +78,35 @@ BENCH_CONFIG = {  # bench.py's make_config([30, 40])
 }
 STREAM_FRAMES = 32
 BF16_FRAMES = 8
+INT8_QK_FRAMES = 32
+GN_FRAMES = 16
+WIDE_FRAMES = 8
+INTERLEAVED_ROUNDS = 30
+# the three opt-in kernels: none of them on bench.py's main path
+OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0, "group_norm": 0}
 # launches per stream step with depth: flash 32 in the UNet + 12 in the ViT;
 # the one batched encode of frame and depth image keeps the conv counts
 EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 44,
                      "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
-                     "stream_attention_bf16": 0}
+                     "stream_attention_bf16": 0, **OPT_IN_OFF}
 # prepare(): 2 warmup UNet forwards (32 spatial + 40 motion attentions each)
 # and one DPT forward over the 8 warmup frames
 EXPECTED_PREPARE = {"stream_attention_int8": 0, "flash_attention": 156,
                     "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
-                    "stream_attention_bf16": 0}
+                    "stream_attention_bf16": 0, **OPT_IN_OFF}
 EXPECTED_PER_STEP_BF16 = {"stream_attention_bf16": 40, "stream_attention_int8": 0,
                           "flash_attention": 32, "conv3x3": 64, "conv3x3_s2": 3,
-                          "layer_norm": 0}
+                          "layer_norm": 0, **OPT_IN_OFF}
+# a flash variant takes the self-attentions that pass the flash gate
+# (S >= 1024, a multiple of 128): the 5 spatial transformers at each of the
+# two top latent levels, 10 a step and 10 per warmup forward in prepare;
+# every other attention keeps the d-major kernel
+GATED_PER_STEP, GATED_PREPARE = 10, 20
+
+
+def with_variant(expected, name, gated):
+    """``expected`` with ``gated`` d-major flash launches moved to ``name``."""
+    return {**expected, "flash_attention": expected["flash_attention"] - gated, name: gated}
 
 
 def phase(name: str) -> None:
@@ -106,8 +138,11 @@ def time_ms(fn, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def bound(nbytes: float, flops: float, peak: str):
-    t_bytes, t_ops = nbytes / MEM_BW * 1e3, flops / PEAK[peak] * 1e3
+def bound(nbytes: float, *ops):
+    """The larger of the bytes' time at MEM_BW and the operations' time,
+    ``ops`` being (count, peak name) pairs, each at its own peak."""
+    t_bytes = nbytes / MEM_BW * 1e3
+    t_ops = sum(n / PEAK[peak] * 1e3 for n, peak in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -162,7 +197,7 @@ def check_stream_attention(torch, gen, dev, cache: str):
         err, rel = compare(out, ref, 2e-2)
         nbytes = 2 * q.numel() + cache_bytes + 4 * extra.numel() + 4 * pe_v.numel() + 2 * q.numel()
         flops = 6 * window * s * c * hw  # q.k, v (dequant) + pe, p.v
-        b_ms, b_by = bound(nbytes, flops, "fp32")
+        b_ms, b_by = bound(nbytes, (flops, "fp32"))
         rows.append(dict(
             shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}", calls=10,
             prepare_calls=0, max_abs_err=err, rel_err=rel, tol=2e-2,
@@ -206,7 +241,7 @@ def check_flash(torch, gen, dev):
         err, rel = compare(out, ref, 2e-2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                           4 * b * h * sq * sk * d, "bf16")
+                           (4 * b * h * sq * sk * d, "bf16"))
         rows.append(dict(
             shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls, prepare_calls=prep,
             max_abs_err=err, rel_err=rel, tol=2e-2,
@@ -257,7 +292,7 @@ def check_conv(torch, gen, dev, stride: int):
         err, rel = compare(out, ref, 1e-2)
         out_elems = nb * ho * ho * 64
         nbytes = 2 * (x.numel() + w.numel() + 64 * has_bias + out_elems * (1 + fused))
-        b_ms, b_by = bound(nbytes, 2 * out_elems * 9 * cin, "bf16")
+        b_ms, b_by = bound(nbytes, (2 * out_elems * 9 * cin, "bf16"))
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last for cuDNN
         rows.append(dict(
             shape=f"x[{nb},{hw},{hw},{cin}] stride {stride}" + (" +skip+relu" if fused else ""),
@@ -290,7 +325,7 @@ def check_layer_norm(torch, gen, dev):
         torch.cuda.synchronize()
         # same fp32 statistics in another order; one bf16 rounding of the output
         err, rel = compare(out, ref, 1e-2)
-        b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), 8 * x.numel(), "fp32")
+        b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), (8 * x.numel(), "fp32"))
         rows.append(dict(
             shape=f"x[{n},{c}] bf16", calls=calls, prepare_calls=prep,
             max_abs_err=err, rel_err=rel, tol=1e-2,
@@ -298,6 +333,106 @@ def check_layer_norm(torch, gen, dev):
             plain_ms=time_ms(lambda: layer_norm_plain(x, g, b, eps), 20),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.layer_norm(x, (c,), g, b, eps), 100),
+        ))
+    return rows
+
+
+def check_flash_variant(torch, gen, dev, variant: str):
+    """The s-major or int8-QK flash entry at the gated self-attention
+    shapes of both resolutions: ``[B, H, S, D]`` views of the model's
+    ``[B, S, H, D]`` (no copy), with the dispatch's blocks."""
+    import torch.nn.functional as F
+
+    from live2diff_tpu_torch.ops import flash_attention as fa
+
+    if variant == "smajor":
+        kernel, plain = fa.flash_self_attention, fa.flash_self_attention_plain
+        block_k = lambda s: 1024  # noqa: E731
+        library_note = "scaled_dot_product_attention (the same function)"
+    else:
+        kernel, plain = fa.flash_self_attention_int8, fa.flash_self_attention_int8_plain
+        block_k = lambda s: min(s, 4096)  # noqa: E731
+        library_note = "scaled_dot_product_attention in bf16: NOT the same function (no int8 QK)"
+    # phase 6 runs int8 at 512x512, phase 8 s-major at 768x512; each
+    # variant is also checked at the other resolution's shapes
+    runs_512 = variant == "int8"
+    rows = []
+    # (B, S, D, calls per stream step, calls in prepare): 5 self-attentions
+    # a step at each of the two top levels (B = 2 steps), 10 in prepare
+    # (two warmup forwards over the 8 frames folded into the batch)
+    for b, s, d, calls, prep in (
+        (2, 4096, 40, 5 * runs_512, 0), (2, 1024, 80, 5 * runs_512, 0),
+        (8, 4096, 40, 0, 10 * runs_512), (8, 1024, 80, 0, 10 * runs_512),
+        (2, 6144, 40, 5 * (not runs_512), 0), (2, 1536, 80, 5 * (not runs_512), 0),
+        (8, 6144, 40, 0, 10 * (not runs_512)), (8, 1536, 80, 0, 10 * (not runs_512)),
+    ):
+        h = 8
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        scale, bk = d ** -0.5, block_k(s)
+        out = kernel(q, k, v, scale, 512, bk)
+        torch.cuda.synchronize()
+        ref = plain(q, k, v, scale, 512, bk)
+        torch.cuda.synchronize()
+        # s-major: p against the same block max on both sides, fp32 order
+        # and exp only; int8: the same codes and exact integer Q.K, p
+        # against a 64-key running max in the kernel (as flash_attention)
+        err, rel = compare(out, ref, 2e-2)
+        nbytes = 2 * 4 * q.numel()
+        work = 2 * b * h * s * s * d  # each of the two products
+        if variant == "int8":
+            b_ms, b_by = bound(nbytes, (work, "int8"), (work, "bf16"))
+        else:
+            b_ms, b_by = bound(nbytes, (2 * work, "bf16"))
+        rows.append(dict(
+            shape=f"q[{b},{h},{s},{d}] blocks (512, {fa.pick_block(s, bk)})", calls=calls,
+            prepare_calls=prep, max_abs_err=err, rel_err=rel, tol=2e-2,
+            ms=time_ms(lambda: kernel(q, k, v, scale, 512, bk), 20),
+            plain_ms=time_ms(lambda: plain(q, k, v, scale, 512, bk), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+            library=library_note,
+        ))
+    return rows
+
+
+GN_ACTS = {"silu": "F.silu", "relu": "torch.relu", "none": "identity"}
+
+
+def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
+    """The GroupNorm kernel at every (B, T, C, groups, eps, act) that phase
+    7's stream step and prepare gave it, with its calls there."""
+    import torch.nn.functional as F
+
+    from live2diff_tpu_torch.ops.norm import group_norm, group_norm_plain
+
+    acts = {"silu": F.silu, "relu": torch.relu, "none": lambda y: y}
+    rows = []
+    for key in sorted(set(step_shapes) | set(prepare_shapes)):
+        b, t, c, groups, eps, act = key
+        x = (torch.randn(b, t, c, generator=gen, device=dev) * 3.0 + 2.0).to(torch.bfloat16)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        bt = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        args = (x, g, bt, groups, eps, act)
+        out = group_norm(*args)
+        torch.cuda.synchronize()
+        ref = group_norm_plain(*args)
+        torch.cuda.synchronize()
+        # the same fp32 centred statistics merged in another order; one
+        # bf16 rounding of the output
+        err, rel = compare(out, ref, 1e-2)
+        x_cf = x.permute(0, 2, 1).contiguous()  # channels-first copy, made once
+        rows.append(dict(
+            shape=f"x[{b},{t},{c}] G{groups} eps {eps:g} {act}",
+            calls=step_shapes.get(key, 0), prepare_calls=prepare_shapes.get(key, 0),
+            max_abs_err=err, rel_err=rel, tol=1e-2,
+            ms=time_ms(lambda: group_norm(*args), 50),
+            plain_ms=time_ms(lambda: group_norm_plain(*args), 5),
+            # x read once, y written once (bf16); ~10 fp32 operations an element
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(2 * (2 * x.numel() + 2 * c), (10 * x.numel(), "fp32")))),
+            library_ms=time_ms(lambda: acts[act](F.group_norm(x_cf, groups, g, bt, eps)), 50),
+            library=f"F.group_norm + {GN_ACTS[act]} on a channels-first copy (copy not timed)",
         ))
     return rows
 
@@ -431,10 +566,41 @@ def check_counts(what, counts, expected, per: int):
                 f"{what}: {name} launched {counts[name]} times, expected {n} x {per}")
 
 
-def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile, **build_kw):
+def group_norm_recorder(torch, modules):
+    """Forward pre-hooks on every FusedGroupNorm of ``modules`` that log
+    (B, T, C, groups, eps, act) of each call meeting the JAX package's
+    kernel conditions (``live2diff_tpu/ops/norm.py:140-147``: T * C <=
+    3 * 2^20, C % groups == 0, C % 8 == 0). Returns (log, remove)."""
+    from live2diff_tpu_torch.models.layers import FusedGroupNorm
+    from live2diff_tpu_torch.models.resnet import InflatedGroupNorm
+
+    log = []
+
+    def hook(mod, args):
+        x = args[0]
+        c = x.shape[-1]
+        # InflatedGroupNorm folds its frame axis into the batch
+        n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
+        t = x.numel() // (n * c)
+        if t * c <= 3 * 1024 * 1024 and c % mod.num_groups == 0 and c % 8 == 0:
+            log.append((n, t, c, mod.num_groups, mod.eps, mod.act))
+
+    handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
+               if isinstance(m, FusedGroupNorm)]
+    return log, lambda: [h.remove() for h in handles]
+
+
+def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile,
+               height=512, width=512, record_gn=False, keep=None, **build_kw):
     """build_pipeline at full width, prepare, then ``n_frames`` frames, each
     timed on the host clock to a synchronize; launch counts are zeroed just
-    before prepare and before the frames, and asserted just after each."""
+    before prepare and before the frames, and asserted just after each.
+    With ``record_gn`` the GroupNorm calls that meet the kernel conditions
+    are logged over prepare and the (untimed) warm step, and ``group_norm``
+    is expected to launch once for each of them. ``keep``, a list, gets the
+    stream, its state and the frames, for ``interleaved``."""
+    from collections import Counter
+
     from live2diff_tpu_torch.builder import build_pipeline
 
     dev = torch.device("cuda")
@@ -443,19 +609,22 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     allocated_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    built = build_pipeline(BENCH_CONFIG, 512, 512, dtype=torch.bfloat16, output_uint8=True,
-                           seed=0, device=dev, **build_kw)
+    built = build_pipeline(BENCH_CONFIG, height, width, dtype=torch.bfloat16,
+                           output_uint8=True, seed=0, device=dev, **build_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     stream = built.stream
     n_params = {"unet": sum(p.numel() for p in built.unet.parameters())}
     if built.depth_model is not None:
         n_params["depth"] = sum(p.numel() for p in built.depth_model.parameters())
+    if record_gn:
+        gn_log, remove_hooks = group_norm_recorder(
+            torch, [m for m in (built.unet, built.depth_model) if m is not None])
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
-    warm = torch.rand(8, 512, 512, 3, generator=gen, device=dev) * 2 - 1
-    frames = torch.randint(0, 256, (n_frames, 512, 512, 3), generator=gen, device=dev,
+    warm = torch.rand(8, height, width, 3, generator=gen, device=dev) * 2 - 1
+    frames = torch.randint(0, 256, (n_frames, height, width, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
 
     _build.reset_launch_counts()
@@ -464,7 +633,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     warm_counts = dict(_build.launch_counts)
-    if warm_out.shape != (8, 512, 512, 3) or warm_out.dtype != torch.uint8:
+    if warm_out.shape != (8, height, width, 3) or warm_out.dtype != torch.uint8:
         raise AssertionError(f"warmup output {tuple(warm_out.shape)} {warm_out.dtype}")
     if len(state.kv_caches) != 40:
         raise AssertionError(f"prepare() left {len(state.kv_caches)} KV caches, expected 40")
@@ -472,6 +641,10 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     finite = [torch.isfinite(c[1] if int8 else c).all() for c in state.kv_caches]
     if not all(finite):
         raise AssertionError("prepare() left non-finite KV caches (or int8 scales)")
+    if record_gn:
+        gn_prepare = Counter(gn_log)
+        gn_log.clear()
+        expected_prepare = {**expected_prepare, "group_norm": sum(gn_prepare.values())}
     check_counts("prepare", warm_counts, expected_prepare, 1)
     peak_prepare = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -479,6 +652,10 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     first_step_s = stream.warm_frame_step(torch.uint8)
     peak_warm_step = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    if record_gn:
+        gn_step = Counter(gn_log)
+        remove_hooks()
+        expected_step = {**expected_step, "group_norm": sum(gn_step.values())}
 
     _build.reset_launch_counts()
     times, outs = [], []
@@ -494,33 +671,40 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     counts = dict(_build.launch_counts)
     peak_stream = torch.cuda.max_memory_allocated()
     for out in outs:
-        if out.shape != (512, 512, 3) or out.dtype != torch.uint8:
+        if out.shape != (height, width, 3) or out.dtype != torch.uint8:
             raise AssertionError(f"frame output {tuple(out.shape)} {out.dtype}")
     check_counts(f"{n_frames} stream steps", counts, expected_step, n_frames)
     if not torch.isfinite(state.depth_buffer).all():
         raise AssertionError("non-finite depth latents")
     steady = sorted(times[2:])
     result = dict(
-        params=n_params, build_s=build_s, prepare_s=prepare_s,
+        frame=f"{width}x{height}", params=n_params, build_s=build_s, prepare_s=prepare_s,
         first_step_s=first_step_s, frames=n_frames,
         frame_ms_p50=statistics.median(steady),
         frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
         frame_ms_all=times,
         fps_p50=1e3 / statistics.median(steady),
         # peak device memory from the build on (the warm step included), and
-        # over prepare alone and the streamed frames alone
-        max_memory_allocated_bytes=max(peak_prepare, peak_warm_step, peak_stream),
-        max_memory_prepare_bytes=peak_prepare, max_memory_stream_bytes=peak_stream,
+        # over prepare alone and the streamed frames alone, above what was
+        # allocated before the build (the script's buffers, kept pipelines)
+        max_memory_allocated_bytes=max(peak_prepare, peak_warm_step, peak_stream)
+        - allocated_at_start,
+        max_memory_prepare_bytes=peak_prepare - allocated_at_start,
+        max_memory_stream_bytes=peak_stream - allocated_at_start,
         memory_allocated_at_start_bytes=allocated_at_start,
-        outputs_uint8_512x512x3=True,
+        outputs_uint8=True,
         output_mean=float(torch.stack(outs).float().mean()),
         output_std=float(torch.stack(outs).float().std()),
         launches_prepare=warm_counts,
         launches_stream=counts,
         launches_per_step={k: v / n_frames for k, v in counts.items()},
     )
+    if record_gn:
+        result["group_norm_shapes"] = (gn_step, gn_prepare)
     if built.depth_model is not None:
         result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
+    if keep is not None:
+        keep.append((stream, state, frames))
     if profile:
         result["profile"] = prof = profile_steps(torch, stream, state, frames[:4])
         if isinstance(prof["device_ms_per_call"], float):
@@ -534,6 +718,33 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
                 dprof["share_of_step_kernels"] = (dprof["kernels_per_call"]
                                                   / prof["kernels_per_call"])
     return result, counts
+
+
+def interleaved(torch, runs, rounds):
+    """Frame times of several pipelines streamed in turn, one frame each a
+    round, the order rotated every round, so that the host's drift over the
+    run falls on all of them alike. ``runs``: {name: (stream, state,
+    frames)}. Returns {name: {p50, p90, wins}}, ``wins`` counting the rounds
+    in which that pipeline's frame was the fastest."""
+    names = list(runs)
+    states = {n: runs[n][1] for n in names}
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        order = names[r % len(names):] + names[:r % len(names)]
+        for n in order:
+            stream, _, frames = runs[n]
+            t0 = time.perf_counter()
+            states[n], _ = stream(states[n], frames[r % len(frames)])
+            torch.cuda.synchronize()
+            times[n].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for n in names:
+        srt = sorted(times[n])
+        wins = sum(times[n][r] == min(times[m][r] for m in names) for r in range(rounds))
+        out[n] = dict(frame_ms_p50=statistics.median(srt),
+                      frame_ms_p90=srt[int(0.9 * (len(srt) - 1))], fastest_in_rounds=wins,
+                      rounds=rounds)
+    return out
 
 
 def raw_depth_stats(torch, stream, frames):
@@ -598,6 +809,32 @@ def profile_depth(torch, stream, frames):
         return profile_device(torch, lambda: stream._depth_image(next(it)[None]), len(frames))
 
 
+def print_rows(k) -> None:
+    for r in k["shapes"]:
+        print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}) "
+              f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library {r['library_ms']}")
+
+
+def report_stream(result) -> None:
+    print(json.dumps({k: v for k, v in result.items()
+                      if k not in ("frame_ms_all", "raw_depth", "depth_profile")}))
+    if "depth_profile" in result:
+        print(f"depth branch profile: {json.dumps(result['depth_profile'])}")
+    print(f"frame ms all: {[round(t, 3) for t in result['frame_ms_all']]}")
+    if "raw_depth" in result:
+        print(f"raw depth (min, max, std) of 4 stream frames: {json.dumps(result['raw_depth'])}")
+    sys.stdout.flush()
+
+
+def headline(result) -> dict:
+    """Frame p50/p90 and, where profiled, device ms and kernels a step."""
+    prof = result.get("profile", {})
+    return dict(frame_ms_p50=result["frame_ms_p50"], frame_ms_p90=result["frame_ms_p90"],
+                device_ms_per_step=prof.get("device_ms_per_call"),
+                kernels_per_step=prof.get("kernels_per_call"))
+
+
 def main() -> int:
     import torch
 
@@ -621,10 +858,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    sources = ["stream_attention", "flash_attention", "conv3x3", "layer_norm"]
-    _build.build(sources)
-    print(f"kernel build ({len(sources)} nvcc in parallel): {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    _build.build(_build.SOURCES)
+    print(f"kernel build ({len(_build.SOURCES)} nvcc in parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -643,6 +879,12 @@ def main() -> int:
                   check_stream_attention(torch, gen, dev, "bf16")),
         summarise("flash_attention", src + "flash_attention.cu",
                   "live2diff_tpu/ops/flash_attention.py:143", check_flash(torch, gen, dev)),
+        summarise("flash_attention_smajor", src + "flash_attention.cu",
+                  "live2diff_tpu/ops/flash_attention.py:317",
+                  check_flash_variant(torch, gen, dev, "smajor")),
+        summarise("flash_attention_int8", src + "flash_attention_int8.cu",
+                  "live2diff_tpu/ops/flash_attention.py:256",
+                  check_flash_variant(torch, gen, dev, "int8")),
         summarise("conv3x3", src + "conv3x3.cu",
                   "live2diff_tpu/ops/conv.py:492", check_conv(torch, gen, dev, 1)),
         summarise("conv3x3_s2", src + "conv3x3.cu",
@@ -651,10 +893,7 @@ def main() -> int:
                   "live2diff_tpu/ops/norm.py:224", check_layer_norm(torch, gen, dev)),
     ]
     for k in kernels:
-        for r in k["shapes"]:
-            print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}) "
-                  f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) library {r['library_ms']}")
+        print_rows(k)
     sys.stdout.flush()
 
     phase("small input: card (bf16, kernels) against CPU (fp32, plain), with a narrow DPT")
@@ -664,27 +903,71 @@ def main() -> int:
 
     phase("slice at full width: bench.py's main path (512x512, SD-1.5 motion UNet, TAESD, "
           "DPT-hybrid depth, int8 cache)")
+    kept = []  # the three 512x512 int8-cache pipelines, streamed in turn after phase 7
     result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
-                                EXPECTED_PREPARE, profile=True, kv_cache_dtype="int8")
-    print(json.dumps({k: v for k, v in result.items()
-                      if k not in ("frame_ms_all", "raw_depth", "depth_profile")}))
-    print(f"depth branch profile: {json.dumps(result.get('depth_profile'))}")
-    print(f"frame ms all: {[round(t, 3) for t in result['frame_ms_all']]}")
-    print(f"raw depth (min, max, std) of 4 stream frames: {json.dumps(result['raw_depth'])}")
+                                EXPECTED_PREPARE, profile=True, keep=kept, kv_cache_dtype="int8")
+    report_stream(result)
+    main_path = headline(result)
     del result
-    sys.stdout.flush()
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
-    result_bf16, counts_bf16 = run_stream(torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16,
-                                          {"stream_attention_int8": 0, "layer_norm": 0},
-                                          profile=False, kv_cache_dtype="bf16", use_depth=False)
+    result_bf16, counts_bf16 = run_stream(
+        torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16,
+        {"stream_attention_int8": 0, "layer_norm": 0, **OPT_IN_OFF},
+        profile=False, kv_cache_dtype="bf16", use_depth=False)
     print(json.dumps({k: v for k, v in result_bf16.items() if k != "frame_ms_all"}))
+    del result_bf16
 
+    phase("int8 QK at full width: bench.py's --spatial-qk int8 (flash_variant='int8')")
+    result, counts_int8 = run_stream(
+        torch, _build, INT8_QK_FRAMES,
+        with_variant(EXPECTED_PER_STEP, "flash_attention_int8", GATED_PER_STEP),
+        with_variant(EXPECTED_PREPARE, "flash_attention_int8", GATED_PREPARE),
+        profile=True, keep=kept, kv_cache_dtype="int8", flash_variant="int8")
+    report_stream(result)
+    print(f"beside phase 4: {json.dumps({'main path': main_path, 'int8 QK': headline(result)})}")
+    del result
+
+    phase("GroupNorm kernel at every site (gn_kernel_sites='all')")
+    result, counts_gn = run_stream(torch, _build, GN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
+                                   profile=True, record_gn=True, keep=kept,
+                                   kv_cache_dtype="int8", gn_kernel_sites="all")
+    gn_step, gn_prepare = result.pop("group_norm_shapes")
+    report_stream(result)
+    print(f"group_norm launches: {counts_gn['group_norm'] / GN_FRAMES} a step (one per "
+          f"GroupNorm call meeting the kernel conditions), {sum(gn_prepare.values())} in prepare")
+    print(f"beside phase 4: {json.dumps({'main path': main_path, 'GN kernel': headline(result)})}")
+    del result
+    ab = interleaved(torch, dict(zip(("main path", "int8 QK", "GN kernel"), kept)),
+                     INTERLEAVED_ROUNDS)
+    print(f"phases 4, 6 and 7 streamed in turn: {json.dumps(ab)}")
+    kept.clear()
+    gn_entry = summarise("group_norm", src + "group_norm.cu", "live2diff_tpu/ops/norm.py:123",
+                         check_group_norm(torch, gen, dev, gn_step, gn_prepare))
+    print_rows(gn_entry)
+    kernels.append(gn_entry)
+
+    phase("768x512 at full width (bench.py's second row) with flash_variant='smajor'")
+    result, counts_wide = run_stream(
+        torch, _build, WIDE_FRAMES,
+        with_variant(EXPECTED_PER_STEP, "flash_attention_smajor", GATED_PER_STEP),
+        with_variant(EXPECTED_PREPARE, "flash_attention_smajor", GATED_PREPARE),
+        profile=True, height=512, width=768, kv_cache_dtype="int8", flash_variant="smajor")
+    report_stream(result)
+    del result
+
+    # each kernel's launches come from the phase that runs it
+    source_run = {"stream_attention_bf16": (counts_bf16, BF16_FRAMES, 5),
+                  "flash_attention_int8": (counts_int8, INT8_QK_FRAMES, 6),
+                  "group_norm": (counts_gn, GN_FRAMES, 7),
+                  "flash_attention_smajor": (counts_wide, WIDE_FRAMES, 8)}
     for k in kernels:
-        run_counts, frames = ((counts_bf16, BF16_FRAMES) if k["name"] == "stream_attention_bf16"
-                              else (counts, STREAM_FRAMES))
+        run_counts, frames, ph = source_run.get(k["name"], (counts, STREAM_FRAMES, 4))
         k["launches"] = run_counts[k["name"]]
         k["launches_per_step"] = run_counts[k["name"]] / frames
+        k["launches_phase"] = ph
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on phase {ph}")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

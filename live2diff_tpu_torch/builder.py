@@ -20,6 +20,7 @@ from .config import ConfigDict, load_config
 from .models.midas import DPTConfig, DPTDepthModel
 from .models.unet import UNet3DConditionModel, UNetConfig
 from .models.vae import TinyAutoencoder
+from .ops.choices import KernelChoices, Sites
 from .schedule import LCMSchedule
 from .stream.pipeline import StreamConfig, StreamDiffusionDepth
 
@@ -83,6 +84,9 @@ def build_pipeline(
     use_depth: bool = True,
     do_add_noise: bool = True,
     unet_overrides: Optional[Dict] = None,
+    flash_variant: str = "dmajor",
+    gn_kernel_sites: Sites = frozenset(),
+    ln_kernel_sites: Sites = frozenset({"vit"}),
 ) -> BuiltPipeline:
     """Build the streaming pipeline from a reference-style config dict or YAML.
 
@@ -90,12 +94,28 @@ def build_pipeline(
     torch dtype; it defaults to ``dtype``. ``use_depth`` adds the full
     DPT-hybrid depth model (``DPTConfig()``). Runs on the card unless
     ``device`` says otherwise.
+
+    The last three arguments are the JAX package's kernel knobs, made per
+    pipeline (``ops/choices.py:KernelChoices``); their defaults are the JAX
+    defaults:
+
+    * ``flash_variant`` (``LIVE2DIFF_FLASH``): ``"dmajor"``, ``"smajor"`` or
+      ``"int8"``, the flash kernel of the spatial self-attentions at
+      S >= 1024. bench.py's ``--spatial-qk int8`` is ``"int8"`` and its
+      default ``--spatial-qk bf16`` is ``"dmajor"`` (``bench.py:218``).
+    * ``gn_kernel_sites`` (``LIVE2DIFF_GN_TAGS``): the GroupNorm sites
+      (``resnet``, ``attn_in``, ``motion_in``, ``midas``) that launch the
+      GroupNorm kernel, ``"all"`` or ``"none"``; none by default.
+    * ``ln_kernel_sites`` (``LIVE2DIFF_LN_TAGS``): the LayerNorm sites
+      (``spatial``, ``temporal``, ``vit``) that launch the LayerNorm kernel;
+      ``vit`` by default.
     """
     if not use_tiny_vae:
         raise NotImplementedError(
             "AutoencoderKL is not ported yet (ROADMAP.md queue 1, item 7: use_tiny_vae=False)"
         )
     device = resolve_device(device)
+    kernels = KernelChoices(flash_variant, gn_kernel_sites, ln_kernel_sites)
     cfg = load_config(config) if isinstance(config, str) else ConfigDict.wrap(config)
 
     schedule = LCMSchedule.from_config(
@@ -113,9 +133,11 @@ def build_pipeline(
     )
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    unet = _materialise(lambda: UNet3DConditionModel(unet_cfg), device, dtype, generator)
+    unet = _materialise(lambda: UNet3DConditionModel(unet_cfg, kernels), device, dtype,
+                        generator)
     vae = _materialise(TinyAutoencoder, device, dtype, generator)
-    depth_model = (_materialise(lambda: DPTDepthModel(DPTConfig()), device, dtype, generator)
+    depth_model = (_materialise(lambda: DPTDepthModel(DPTConfig(), kernels), device, dtype,
+                                generator)
                    if use_depth else None)
     stream = StreamDiffusionDepth(unet, vae, schedule, scfg, device, dtype, depth_model)
     return BuiltPipeline(stream=stream, unet=unet, vae=vae, schedule=schedule,

@@ -211,6 +211,181 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// s-major entry: replaces live2diff_tpu/ops/flash_attention.py
+// flash_self_attention (body _flash_kernel, grid (B, H, Sq / block_q,
+// Sk / block_k)). The same function as above over [B, H, S, D] tensors read
+// through strides (a transposed view of the model's [B, S, H, D] needs no
+// copy), with the Pallas kernel's blocking: the running max, sum and
+// accumulator are updated once per key block of block_k keys, and p is
+// taken against the max of the whole block. A block of block_k keys (1024)
+// does not fit shared memory at once, so each block is walked twice in
+// 64-key tiles: the first sweep finds the block's row max (Q.K only), the
+// second computes p against it and accumulates P.V. That repeats Q.K, 1.5x
+// the tensor-core work of the d-major entry; what bounds it is the same
+// (tensor-core operations at S = 4096 and 1024), and it is simple first.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_attention_smajor_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, const long long q_sb, const long long q_sh, const long long q_ss,
+    const long long k_sb, const long long k_sh, const long long k_ss, const long long v_sb,
+    const long long v_sh, const long long v_ss, const long long o_sb, const long long o_sh,
+    const long long o_ss, int Sq, int Sk, int D, int block_k, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * DP;
+  bf16* Vs = Ks + BK * DP;
+  float* Ss = reinterpret_cast<float*>(Vs + BK * DP);
+  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * BK);
+  float* Os = reinterpret_cast<float*>(Ps + BQ * BK);
+  float* Ms = Os + BQ * DP;
+  float* Ls = Ms + BQ;
+  float* As = Ls + BQ;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+
+  load_tile<DP>(Qs, qb, qt * BQ, Sq, (int)q_ss, D);
+  for (int i = tid; i < BQ * DP; i += kThreads) Os[i] = 0.f;
+  if (tid < BQ) {
+    Ms[tid] = -INFINITY;
+    Ls[tid] = 0.f;
+  }
+
+  const int r0 = warp * 16;
+  __syncthreads();
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[DP / 16];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + r0 * DP + kk * 16, DP);
+
+  // S[r0:r0+16, 0:64] = Q K^T of the tile in Ks
+  auto scores = [&]() {
+#pragma unroll
+    for (int n = 0; n < BK / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+        wmma::load_matrix_sync(bt, Ks + n * 16 * DP + kk * 16, DP);
+        wmma::mma_sync(acc, qa[kk], bt, acc);
+      }
+      wmma::store_matrix_sync(Ss + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
+    }
+    __syncwarp();
+  };
+
+  // two lanes a row, 32 keys each, walked in a lane-skewed order (as above)
+  const int r = r0 + lane / 2, half = lane % 2;
+  float* srow = Ss + r * BK + half * 32;
+  bf16* prow = Ps + r * BK + half * 32;
+
+  for (int kb0 = 0; kb0 < Sk; kb0 += block_k) {
+    const int kb1 = min(kb0 + block_k, Sk);
+
+    // sweep 1: the block's row max
+    float bm = -INFINITY;
+    for (int k0 = kb0; k0 < kb1; k0 += BK) {
+      __syncthreads();
+      load_tile<DP>(Ks, kb, k0, kb1, (int)k_ss, D);
+      __syncthreads();
+      scores();
+      const int valid = kb1 - k0 - half * 32;
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) {
+        const int c = (j + lane) & 31;
+        if (c < valid) bm = fmaxf(bm, srow[c] * scale);
+      }
+      __syncwarp();
+    }
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+    const float m_prev = Ms[r];
+    const float m_new = fmaxf(m_prev, bm);  // finite: key kb0 is valid
+    const float alpha = expf(m_prev - m_new);
+    __syncwarp();
+    if (half == 0) {
+      Ms[r] = m_new;
+      Ls[r] *= alpha;
+      As[r] = alpha;
+    }
+    __syncwarp();
+    for (int rr = 0; rr < 16; ++rr) {
+      const float a = As[r0 + rr];
+      float* orow = Os + (r0 + rr) * DP;
+      for (int d = lane; d < DP; d += 32) orow[d] *= a;
+    }
+    __syncwarp();
+
+    // sweep 2: p against the block max, l and O accumulated
+    for (int k0 = kb0; k0 < kb1; k0 += BK) {
+      __syncthreads();
+      load_tile<DP>(Ks, kb, k0, kb1, (int)k_ss, D);
+      load_tile<DP>(Vs, vb, k0, kb1, (int)v_ss, D);
+      __syncthreads();
+      scores();
+      const int valid = kb1 - k0 - half * 32;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) {
+        const int c = (j + lane) & 31;
+        const float pj = c < valid ? expf(srow[c] * scale - m_new) : 0.f;
+        prow[c] = __float2bfloat16(pj);
+        sum += pj;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (half == 0) Ls[r] += sum;
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < DP / 16; ++n) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
+        wmma::load_matrix_sync(o, Os + r0 * DP + n * 16, DP, wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+          wmma::load_matrix_sync(a, Ps + r0 * BK + kk * 16, BK);
+          wmma::load_matrix_sync(bv, Vs + kk * 16 * DP + n * 16, DP);
+          wmma::mma_sync(o, a, bv, o);
+        }
+        wmma::store_matrix_sync(Os + r0 * DP + n * 16, o, DP, wmma::mem_row_major);
+      }
+      __syncwarp();
+    }
+  }
+
+  // out = O * (1 / l), rows inside Sq and columns inside D only
+  bf16* ob = out + b * o_sb + h * o_sh;
+  for (int i = lane; i < 16 * D; i += 32) {
+    const int rr = r0 + i / D, d = i % D;
+    const int row = qt * BQ + rr;
+    if (row < Sq) {
+      const float l = Ls[rr];
+      const float inv = l == 0.f ? 1.f : 1.f / l;
+      ob[row * o_ss + d] = __float2bfloat16(Os[rr * DP + d] * inv);
+    }
+  }
+}
+
+template <int DP>
+int launch_smajor(const void* q, const void* k, const void* v, void* out,
+                  const long long* st, int B, int H, int Sq, int Sk, int D, int block_k,
+                  float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_smajor_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attention_smajor_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], Sq, Sk, D, block_k, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
@@ -228,6 +403,31 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     case 6: return launch<96>(q, k, v, out, B, H, Sq, Sk, D, scale, st);
     case 8: return launch<128>(q, k, v, out, B, H, Sq, Sk, D, scale, st);
     case 10: return launch<160>(q, k, v, out, B, H, Sq, Sk, D, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q, k, v, out [B, H, S, D] bf16 with unit stride along D; strides holds the
+// (b, h, s) strides in elements of q, k, v and out, in that order. block_k
+// must divide Sk (the caller's pick_block).
+extern "C" int flash_attention_smajor(const void* q, const void* k, const void* v, void* out,
+                                      const long long* strides, int B, int H, int Sq, int Sk,
+                                      int D, int block_k, float scale, void* stream) {
+  if (D % 8 != 0 || Sq <= 0 || Sk <= 0 || block_k <= 0 || Sk % block_k != 0 || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0 || strides[i] > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((D + 15) / 16) {
+    case 1: return launch_smajor<16>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 2: return launch_smajor<32>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 3: return launch_smajor<48>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 4: return launch_smajor<64>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 5: return launch_smajor<80>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 6: return launch_smajor<96>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 8: return launch_smajor<128>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
+    case 10: return launch_smajor<160>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,9 @@
 Port of ``live2diff_tpu/models/attention.py``: the SD-1.5 spatial
 transformer applied framewise over ``[B, F, H, W, C]``. Attention runs
 through ``ops.attention.dot_product_attention``, so on the card both the
-self- and the cross-attention launch the flash kernel.
+self- and the cross-attention launch a flash kernel: the self-attention the
+pipeline's ``flash_variant`` where the flash gate passes (S >= 1024), the
+d-major kernel elsewhere.
 """
 
 from __future__ import annotations
@@ -15,15 +17,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward
 
 
 class CrossAttention(nn.Module):
     """Multi-head attention with an optional cross-attention source; q/k/v
-    carry no bias, the output projection does (diffusers ``Attention``)."""
+    carry no bias, the output projection does (diffusers ``Attention``). A
+    self-attention takes ``kernels.flash_variant``; a cross-attention the
+    d-major kernel."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 cross_attention_dim: Optional[int] = None, cross_frame: bool = False):
+                 cross_attention_dim: Optional[int] = None, cross_frame: bool = False,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         if cross_frame:
             raise NotImplementedError(
@@ -32,6 +38,7 @@ class CrossAttention(nn.Module):
             )
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
+        self.flash_variant = "dmajor" if cross_attention_dim else kernels.flash_variant
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
@@ -48,6 +55,7 @@ class CrossAttention(nn.Module):
             split_heads(self.to_q(hidden_states)),
             split_heads(self.to_k(ctx)),
             split_heads(self.to_v(ctx)),
+            flash_variant=self.flash_variant,
         )
         return self.to_out[0](out.reshape(*out.shape[:-2], -1))
 
@@ -56,13 +64,14 @@ class BasicTransformerBlock(nn.Module):
     """LayerNorm -> self-attn -> LayerNorm -> cross-attn -> LayerNorm -> GEGLU FF."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768,
-                 cross_frame_attention: bool = False):
+                 cross_frame_attention: bool = False, kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.norm1 = FusedLayerNorm(dim, 1e-5, site="spatial")
-        self.attn1 = CrossAttention(dim, heads, dim_head, cross_frame=cross_frame_attention)
-        self.norm2 = FusedLayerNorm(dim, 1e-5, site="spatial")
+        self.norm1 = FusedLayerNorm(dim, 1e-5, site="spatial", kernels=kernels)
+        self.attn1 = CrossAttention(dim, heads, dim_head, cross_frame=cross_frame_attention,
+                                    kernels=kernels)
+        self.norm2 = FusedLayerNorm(dim, 1e-5, site="spatial", kernels=kernels)
         self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim)
-        self.norm3 = FusedLayerNorm(dim, 1e-5, site="spatial")
+        self.norm3 = FusedLayerNorm(dim, 1e-5, site="spatial", kernels=kernels)
         self.ff = GEGLUFeedForward(dim)
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
@@ -77,14 +86,15 @@ class Transformer3DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int, dim_head: int, num_layers: int = 1,
                  cross_attention_dim: int = 768, cross_frame_attention: bool = False,
-                 norm_num_groups: int = 32):
+                 norm_num_groups: int = 32, kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         inner = heads * dim_head
-        self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="attn_in")
+        self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="attn_in",
+                                   kernels=kernels)
         self.proj_in = nn.Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
-                                  cross_frame_attention)
+                                  cross_frame_attention, kernels)
             for _ in range(num_layers)
         ])
         self.proj_out = nn.Conv2d(inner, channels, 1)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..ops.norm import group_norm_act, layer_norm
 
 
@@ -99,12 +100,14 @@ class GEGLUFeedForward(nn.Module):
 class FusedGroupNorm(nn.Module):
     """GroupNorm over the trailing channel axis of ``[N, ..., C]`` with
     per-N fp32 statistics and an optional fused activation. ``site`` names
-    the call site, as in the JAX package, for per-site kernel gating."""
+    the call site, as in the JAX package; ``kernels`` says whether the
+    GroupNorm kernel runs there."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
-                 act: str = "none", site: str = ""):
+                 act: str = "none", site: str = "", kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.num_groups, self.eps, self.act, self.site = num_groups, eps, act, site
+        self.kernels = kernels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -113,18 +116,22 @@ class FusedGroupNorm(nn.Module):
         y = group_norm_act(
             x.reshape(x.shape[0], -1, c), self.weight, self.bias,
             groups=self.num_groups, eps=self.eps, act=self.act, site=self.site,
+            kernels=self.kernels,
         )
         return y.reshape(x.shape)
 
 
 class FusedLayerNorm(nn.Module):
-    """LayerNorm over the trailing axis with fp32 statistics; ``site`` as above."""
+    """LayerNorm over the trailing axis with fp32 statistics; ``site`` and
+    ``kernels`` as above."""
 
-    def __init__(self, channels: int, eps: float = 1e-5, site: str = ""):
+    def __init__(self, channels: int, eps: float = 1e-5, site: str = "",
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.eps, self.site = eps, site
+        self.eps, self.site, self.kernels = eps, site, kernels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, eps=self.eps, site=self.site)
+        return layer_norm(x, self.weight, self.bias, eps=self.eps, site=self.site,
+                          kernels=self.kernels)

@@ -12,11 +12,12 @@ under ``scratch``), the keys ``live2diff_tpu/convert/midas.py`` maps from, so
 that checkpoint loads by name. The one exception is ``refinenet4``'s first
 residual unit, which the model never calls and so does not hold.
 
-The ViT's LayerNorms are ``site="vit"`` (the LayerNorm kernel on the card),
-its attention goes through ``ops.attention.dot_product_attention`` (the
-flash kernel on the card); the GroupNorms are ``site="midas"`` (plain torch,
-as the JAX default leaves them) and every convolution is ``F.conv2d``, as
-the JAX package leaves them to XLA.
+The ViT's LayerNorms are ``site="vit"`` (the LayerNorm kernel on the card
+by default), its attention goes through
+``ops.attention.dot_product_attention`` (the flash kernel on the card); the
+GroupNorms are ``site="midas"`` (plain torch unless the pipeline's
+``KernelChoices`` names the site, as the JAX default leaves them) and every
+convolution is ``F.conv2d``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from .layers import FusedGroupNorm, FusedLayerNorm
 from .resnet import conv_nhwc
 
@@ -77,17 +79,17 @@ class StdConv(nn.Conv2d):
 class GNReLU(FusedGroupNorm):
     """GroupNorm(32) + ReLU over NHWC, per-sample statistics."""
 
-    def __init__(self, channels: int, groups: int = 32):
-        super().__init__(groups, channels, eps=1e-5, act="relu", site="midas")
+    def __init__(self, channels: int, groups: int = 32, kernels: KernelChoices = DEFAULT_KERNELS):
+        super().__init__(groups, channels, eps=1e-5, act="relu", site="midas", kernels=kernels)
 
 
 class _Downsample(nn.Module):
     """The bottleneck's projection shortcut: 1x1 StdConv + GroupNorm."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int, kernels: KernelChoices):
         super().__init__()
         self.conv = StdConv(cin, cout, 1, stride, 0, bias=False)
-        self.norm = FusedGroupNorm(32, cout, eps=1e-5, site="midas")
+        self.norm = FusedGroupNorm(32, cout, eps=1e-5, site="midas", kernels=kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.conv(x))
@@ -96,17 +98,18 @@ class _Downsample(nn.Module):
 class ResNetV2Bottleneck(nn.Module):
     """Non-preact BiT bottleneck: StdConv+GN(+ReLU) x3, GN'd projection shortcut."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         mid = out_channels // 4
-        self.downsample = (_Downsample(in_channels, out_channels, stride)
+        self.downsample = (_Downsample(in_channels, out_channels, stride, kernels)
                            if in_channels != out_channels or stride != 1 else None)
         self.conv1 = StdConv(in_channels, mid, 1, bias=False)
-        self.norm1 = GNReLU(mid)
+        self.norm1 = GNReLU(mid, kernels=kernels)
         self.conv2 = StdConv(mid, mid, 3, stride, 1, bias=False)
-        self.norm2 = GNReLU(mid)
+        self.norm2 = GNReLU(mid, kernels=kernels)
         self.conv3 = StdConv(mid, out_channels, 1, bias=False)
-        self.norm3 = FusedGroupNorm(32, out_channels, eps=1e-5, site="midas")
+        self.norm3 = FusedGroupNorm(32, out_channels, eps=1e-5, site="midas", kernels=kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.downsample is None else self.downsample(x)
@@ -142,11 +145,12 @@ class _Mlp(nn.Module):
 class ViTBlock(nn.Module):
     """Pre-norm ViT block: LN -> MHSA -> +x, LN -> MLP (exact GELU) -> +x."""
 
-    def __init__(self, hidden: int, heads: int, mlp_dim: int):
+    def __init__(self, hidden: int, heads: int, mlp_dim: int,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.norm1 = FusedLayerNorm(hidden, eps=1e-6, site="vit")
+        self.norm1 = FusedLayerNorm(hidden, eps=1e-6, site="vit", kernels=kernels)
         self.attn = _SelfAttention(hidden, heads)
-        self.norm2 = FusedLayerNorm(hidden, eps=1e-6, site="vit")
+        self.norm2 = FusedLayerNorm(hidden, eps=1e-6, site="vit", kernels=kernels)
         self.mlp = _Mlp(hidden, mlp_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,48 +190,48 @@ class FeatureFusionBlock(nn.Module):
 
 
 class _Stem(nn.Module):
-    def __init__(self):
+    def __init__(self, kernels: KernelChoices):
         super().__init__()
         self.conv = StdConv(3, 64, 7, 2, 3, bias=False)
-        self.norm = GNReLU(64)
+        self.norm = GNReLU(64, kernels=kernels)
 
 
 class _Stage(nn.Module):
-    def __init__(self, cin: int, cout: int, n_blocks: int, stride: int):
+    def __init__(self, cin: int, cout: int, n_blocks: int, stride: int, kernels: KernelChoices):
         super().__init__()
         self.blocks = nn.ModuleList([
-            ResNetV2Bottleneck(cin if i == 0 else cout, cout, stride if i == 0 else 1)
+            ResNetV2Bottleneck(cin if i == 0 else cout, cout, stride if i == 0 else 1, kernels)
             for i in range(n_blocks)
         ])
 
 
 class _Backbone(nn.Module):
-    def __init__(self, cfg: DPTConfig):
+    def __init__(self, cfg: DPTConfig, kernels: KernelChoices):
         super().__init__()
-        self.stem = _Stem()
+        self.stem = _Stem(kernels)
         cins = (64,) + STAGE_CHANNELS[:-1]
         self.stages = nn.ModuleList([
-            _Stage(cin, cout, n, 1 if s == 0 else 2)
+            _Stage(cin, cout, n, 1 if s == 0 else 2, kernels)
             for s, (cin, cout, n) in enumerate(zip(cins, STAGE_CHANNELS, cfg.resnet_layers))
         ])
 
 
 class _PatchEmbed(nn.Module):
-    def __init__(self, cfg: DPTConfig):
+    def __init__(self, cfg: DPTConfig, kernels: KernelChoices):
         super().__init__()
-        self.backbone = _Backbone(cfg)
+        self.backbone = _Backbone(cfg, kernels)
         self.proj = nn.Conv2d(STAGE_CHANNELS[-1], cfg.vit_hidden, 1)
 
 
 class _VisionTransformer(nn.Module):
-    def __init__(self, cfg: DPTConfig):
+    def __init__(self, cfg: DPTConfig, kernels: KernelChoices):
         super().__init__()
         g, d = cfg.patch_grid, cfg.vit_hidden
-        self.patch_embed = _PatchEmbed(cfg)
+        self.patch_embed = _PatchEmbed(cfg, kernels)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, g * g + 1, d))
         self.blocks = nn.ModuleList([
-            ViTBlock(d, cfg.vit_heads, cfg.vit_mlp) for _ in range(cfg.vit_layers)
+            ViTBlock(d, cfg.vit_heads, cfg.vit_mlp, kernels) for _ in range(cfg.vit_layers)
         ])
 
 
@@ -256,9 +260,9 @@ def _reassemble(hidden: int, down: bool) -> nn.ModuleList:
 
 
 class _Pretrained(nn.Module):
-    def __init__(self, cfg: DPTConfig):
+    def __init__(self, cfg: DPTConfig, kernels: KernelChoices):
         super().__init__()
-        self.model = _VisionTransformer(cfg)
+        self.model = _VisionTransformer(cfg, kernels)
         self.act_postprocess3 = _reassemble(cfg.vit_hidden, down=False)
         self.act_postprocess4 = _reassemble(cfg.vit_hidden, down=True)
 
@@ -281,12 +285,14 @@ class _Scratch(nn.Module):
 
 
 class DPTDepthModel(nn.Module):
-    """vitb_rn50_384 hybrid DPT depth model: [B, 384, 384, 3] -> [B, 384, 384]."""
+    """vitb_rn50_384 hybrid DPT depth model: [B, 384, 384, 3] -> [B, 384, 384].
+    ``kernels`` picks the norm kernels of its GroupNorm and LayerNorm sites."""
 
-    def __init__(self, config: DPTConfig = DPTConfig()):
+    def __init__(self, config: DPTConfig = DPTConfig(),
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.config = config
-        self.pretrained = _Pretrained(config)
+        self.pretrained = _Pretrained(config, kernels)
         self.scratch = _Scratch(config)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

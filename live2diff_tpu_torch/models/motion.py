@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention, stream_window_attention
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..stream.state import KVCache
 from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, sinusoidal_table
 
@@ -141,17 +142,19 @@ class TemporalTransformerBlock(nn.Module):
     """Two temporal self-attentions + GEGLU feed-forward, all residual."""
 
     def __init__(self, dim: int, heads: int, num_attention_blocks: int = 2,
-                 pe_max_len: int = 24, window_size: int = 16):
+                 pe_max_len: int = 24, window_size: int = 16,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.attention_blocks = nn.ModuleList([
             TemporalAttention(dim, heads, pe_max_len, window_size)
             for _ in range(num_attention_blocks)
         ])
         self.norms = nn.ModuleList([
-            FusedLayerNorm(dim, 1e-5, site="temporal") for _ in range(num_attention_blocks)
+            FusedLayerNorm(dim, 1e-5, site="temporal", kernels=kernels)
+            for _ in range(num_attention_blocks)
         ])
         self.ff = GEGLUFeedForward(dim)
-        self.ff_norm = FusedLayerNorm(dim, 1e-5, site="temporal")
+        self.ff_norm = FusedLayerNorm(dim, 1e-5, site="temporal", kernels=kernels)
 
     def forward(self, x: torch.Tensor, kv_caches: Sequence[KVCache], mode: str, *args):
         new_caches = []
@@ -168,14 +171,16 @@ class TemporalTransformer3DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int = 8, num_layers: int = 1,
                  num_attention_blocks: int = 2, norm_num_groups: int = 32,
-                 pe_max_len: int = 24, window_size: int = 16):
+                 pe_max_len: int = 24, window_size: int = 16,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.caches_per_block = num_attention_blocks
-        self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="motion_in")
+        self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="motion_in",
+                                   kernels=kernels)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             TemporalTransformerBlock(channels, heads, num_attention_blocks, pe_max_len,
-                                     window_size)
+                                     window_size, kernels)
             for _ in range(num_layers)
         ])
         self.proj_out = nn.Linear(channels, channels)

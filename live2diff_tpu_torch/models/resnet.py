@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from .layers import FusedGroupNorm
 
 
@@ -45,12 +46,14 @@ class ResnetBlock3D(nn.Module):
     """norm1 -> silu -> conv1 -> (+ time proj) -> norm2 -> silu -> conv2 -> + skip."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
-                 groups: int = 32, eps: float = 1e-6):
+                 groups: int = 32, eps: float = 1e-6, kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.norm1 = InflatedGroupNorm(groups, in_channels, eps, act="silu", site="resnet")
+        self.norm1 = InflatedGroupNorm(groups, in_channels, eps, act="silu", site="resnet",
+                                       kernels=kernels)
         self.conv1 = InflatedConv(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels)
-        self.norm2 = InflatedGroupNorm(groups, out_channels, eps, act="silu", site="resnet")
+        self.norm2 = InflatedGroupNorm(groups, out_channels, eps, act="silu", site="resnet",
+                                       kernels=kernels)
         self.conv2 = InflatedConv(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
             InflatedConv(in_channels, out_channels, 1) if in_channels != out_channels else None

@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..stream.state import KVCache
 from .attention import Transformer3DModel
 from .layers import FusedGroupNorm, TimestepEmbedding, timestep_embedding
@@ -187,9 +188,11 @@ class _Block(nn.Module):
 
 
 class UNet3DConditionModel(nn.Module):
-    """Depth-conditioned inflated UNet with streaming temporal attention."""
+    """Depth-conditioned inflated UNet with streaming temporal attention.
+    ``kernels`` picks the opt-in kernels of its attention and norm modules."""
 
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    def __init__(self, config: UNetConfig = UNetConfig(),
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         if config.unet_use_cross_frame_attention:
             raise NotImplementedError(
@@ -201,20 +204,20 @@ class UNet3DConditionModel(nn.Module):
         n = len(ch)
 
         def resnet(cin, cout):
-            return ResnetBlock3D(cin, cout, temb, cfg.norm_num_groups, cfg.norm_eps)
+            return ResnetBlock3D(cin, cout, temb, cfg.norm_num_groups, cfg.norm_eps, kernels)
 
         def spatial(c):
             return Transformer3DModel(
                 c, cfg.attention_head_dim, c // cfg.attention_head_dim,
                 cross_attention_dim=cfg.cross_attention_dim,
-                norm_num_groups=cfg.norm_num_groups,
+                norm_num_groups=cfg.norm_num_groups, kernels=kernels,
             )
 
         def motion(c):
             return MotionModule(
                 c, cfg.motion_num_attention_heads, cfg.motion_num_transformer_block,
                 len(cfg.motion_attention_block_types), cfg.norm_num_groups,
-                cfg.motion_pe_max_len, cfg.window_size,
+                cfg.motion_pe_max_len, cfg.window_size, kernels=kernels,
             )
 
         self.conv_in = InflatedConv(cfg.in_channels, ch[0], 3, padding=1)
@@ -263,7 +266,8 @@ class UNet3DConditionModel(nn.Module):
             self.up_blocks.append(blk)
 
         self.conv_norm_out = FusedGroupNorm(
-            cfg.norm_num_groups, ch[0], cfg.norm_eps, act="silu", site="resnet"
+            cfg.norm_num_groups, ch[0], cfg.norm_eps, act="silu", site="resnet",
+            kernels=kernels,
         )
         self.conv_out = InflatedConv(ch[0], cfg.out_channels, 3, padding=1)
 

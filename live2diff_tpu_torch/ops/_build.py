@@ -43,7 +43,14 @@ launch_counts: Dict[str, int] = {
     "conv3x3": 0,
     "conv3x3_s2": 0,
     "layer_norm": 0,
+    "flash_attention_smajor": 0,
+    "flash_attention_int8": 0,
+    "group_norm": 0,
 }
+
+# every source under csrc/, by the name load() and build() take
+SOURCES = ("stream_attention", "flash_attention", "flash_attention_int8", "conv3x3",
+           "layer_norm", "group_norm")
 
 
 def reset_launch_counts() -> None:

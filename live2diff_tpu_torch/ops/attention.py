@@ -2,10 +2,15 @@
 
 Port of ``live2diff_tpu/ops/attention.py``. Two functions:
 
-* ``dot_product_attention``: scaled dot-product attention. On CUDA tensors
-  every call without a bias launches the flash kernel (any rank: leading
-  dims fold into the batch); a call with a bias has no kernel yet and
-  raises there. On the CPU it runs the plain dense version.
+* ``dot_product_attention``: scaled dot-product attention. A call that
+  passes the JAX package's flash gate (``live2diff_tpu/ops/attention.py:
+  268-278``: no bias, rank 4, Sq == Sk >= 1024, both multiples of 128) runs
+  the caller's ``flash_variant``: ``smajor`` or ``int8`` take their own
+  kernels there (their plain versions on the CPU). Every other call, and
+  every call of the default ``dmajor``, launches the d-major flash kernel
+  on CUDA tensors (any rank: leading dims fold into the batch) and runs
+  the plain dense version on the CPU. A call with a bias has no kernel yet
+  and raises on CUDA.
 * ``stream_window_attention``: one new frame's temporal attention over the
   streaming KV cache, with the positional encodings factored out of the
   cache. On CUDA an int8 cache goes through the int8 stream-attention
@@ -20,10 +25,23 @@ from typing import Optional
 import torch
 
 from ..stream.state import KVCache
-from .flash_attention import flash_attention, flash_attention_plain
+from .choices import FLASH_VARIANTS
+from .flash_attention import (
+    flash_attention, flash_attention_plain, flash_self_attention, flash_self_attention_int8,
+)
 from .stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
 )
+
+# sequence length from which the flash variants take over (the JAX gate)
+FLASH_MIN_SEQ = 1024
+
+
+def flash_gate(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether a call takes the flash variant: the JAX package's gate."""
+    sq, sk = q.shape[-3], k.shape[-3]
+    return (bias is None and q.dim() == 4 and sq == sk and sk >= FLASH_MIN_SEQ
+            and sq % 128 == 0 and sk % 128 == 0)
 
 
 def dot_product_attention(
@@ -32,10 +50,23 @@ def dot_product_attention(
     v: torch.Tensor,  # [..., Sk, H, D]
     bias: Optional[torch.Tensor] = None,  # broadcastable to [..., H, Sq, Sk]
     scale: Optional[float] = None,
+    flash_variant: str = "dmajor",
 ) -> torch.Tensor:
     """Scaled dot-product attention; returns ``[..., Sq, H, D]`` in q's
-    dtype with the softmax in fp32. ``scale`` defaults to ``D**-0.5``."""
+    dtype with the softmax in fp32. ``scale`` defaults to ``D**-0.5``.
+    ``flash_variant`` (``dmajor``, ``smajor`` or ``int8``) picks the kernel
+    of the calls that pass ``flash_gate``, with the JAX dispatch's blocks."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if flash_variant not in FLASH_VARIANTS:
+        raise ValueError(f"flash_variant {flash_variant!r}: expected one of {FLASH_VARIANTS}")
+    if flash_variant != "dmajor" and flash_gate(q, k, bias):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, D] views
+        if flash_variant == "smajor":
+            out = flash_self_attention(qt, kt, vt, scale, block_q=512, block_k=1024)
+        else:
+            out = flash_self_attention_int8(qt, kt, vt, scale, block_q=512,
+                                            block_k=min(k.shape[-3], 4096))
+        return out.transpose(1, 2).to(q.dtype)
     lead = q.shape[:-3]
     q4 = q.reshape(-1, *q.shape[-3:])
     k4 = k.reshape(-1, *k.shape[-3:])

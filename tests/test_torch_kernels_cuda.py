@@ -6,7 +6,10 @@ shapes of the 512x512 stream step) with ragged shapes: lengths that are not
 multiples of the kernels' tiles, every head width the flash kernel takes,
 channel counts that take the conv kernel's scalar load path, row counts
 that are not a multiple of the LayerNorm kernel's 8 rows a block, both
-cache dtypes of stream attention, and the wrappers' refusals. Run them on the card, from the repository root:
+cache dtypes of stream attention, the s-major and int8-QK flash entries on
+strided ``[B, H, S, D]`` views at lengths that are not multiples of their
+64-row tiles, GroupNorm at ragged row counts with each activation, and the
+wrappers' refusals. Run them on the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
@@ -25,8 +28,13 @@ import torch
 from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops.attention import dot_product_attention, stream_window_attention
 from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
-from live2diff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from live2diff_tpu_torch.ops.norm import layer_norm, layer_norm_plain, layer_norm_rows
+from live2diff_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain, flash_self_attention, flash_self_attention_int8,
+    flash_self_attention_int8_plain, flash_self_attention_plain,
+)
+from live2diff_tpu_torch.ops.norm import (
+    group_norm, group_norm_plain, layer_norm, layer_norm_plain, layer_norm_rows,
+)
 from live2diff_tpu_torch.ops.stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
 )
@@ -36,6 +44,7 @@ pytestmark = pytest.mark.cuda
 ATTN_TOL = 2e-2
 CONV_TOL = 1e-2
 LN_TOL = 1e-2
+GN_TOL = 1e-2  # one bf16 rounding of the output, as LayerNorm
 
 
 @pytest.fixture(scope="module")
@@ -188,3 +197,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros(s, c, device=dev), torch.zeros(s, 16, c, device=dev),
             torch.zeros(s, 16, c, device=dev), torch.zeros(s, 16, device=dev), 2,
         )
+
+
+def _bhsd(gen, dev, b, s, h, d):
+    """A [B, H, S, D] view of a [B, S, H, D] tensor, as the model hands it."""
+    return _randn(gen, dev, b, s, h, d).to(torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,h,s,d,block_q,block_k", [
+    (1, 2, 100, 40, 512, 1024),   # one key block shorter than a tile pair
+    (2, 3, 130, 80, 512, 1024),   # ragged query and key tiles
+    (1, 2, 384, 64, 128, 128),    # three key blocks
+    (2, 2, 1024, 40, 512, 256),   # four key blocks at a production width
+    (1, 1, 200, 8, 512, 1024),
+])
+def test_flash_smajor_matches_plain(dev, b, h, s, d, block_q, block_k):
+    gen = torch.Generator(device=dev).manual_seed(s * 100 + d)
+    q, k, v = (_bhsd(gen, dev, b, s, h, d) for _ in range(3))
+    before = _build.launch_counts["flash_attention_smajor"]
+    out = flash_self_attention(q, k, v, d ** -0.5, block_q, block_k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_smajor"] == before + 1
+    assert out.shape == q.shape and out.stride() == q.stride()
+    # p against the same block max on both sides: fp32 order and exp only
+    ref = flash_self_attention_plain(q, k, v, d ** -0.5, block_q, block_k)
+    assert _rel(out, ref) < ATTN_TOL
+
+
+@pytest.mark.parametrize("b,h,s,d,block_q,block_k", [
+    (1, 2, 200, 40, 512, 1024),   # one group each way, ragged tiles
+    (2, 2, 384, 80, 128, 256),    # 3 q groups, 3 k groups (pick_block: 128)
+    (1, 2, 1024, 64, 512, 1024),  # 2 q groups, one k group
+    (2, 1, 640, 40, 128, 640),    # 5 q groups, 640-row k group (10 tiles)
+])
+def test_flash_int8_matches_plain(dev, b, h, s, d, block_q, block_k):
+    gen = torch.Generator(device=dev).manual_seed(s * 100 + d + 7)
+    q, v = _bhsd(gen, dev, b, s, h, d), _bhsd(gen, dev, b, s, h, d)
+    k = (_randn(gen, dev, b, s, h, d) + 0.7).to(torch.bfloat16).transpose(1, 2)
+    before = _build.launch_counts["flash_attention_int8"]
+    out = flash_self_attention_int8(q, k, v, d ** -0.5, block_q, block_k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_int8"] == before + 1
+    assert out.shape == q.shape
+    # the same int8 codes and exact integer Q.K on both sides; p is rounded
+    # to bf16 against a 64-key running max in the kernel, against the key
+    # group's max in the plain version, as flash_attention above
+    ref = flash_self_attention_int8_plain(q, k, v, d ** -0.5, block_q, block_k)
+    assert _rel(out, ref) < ATTN_TOL
+
+
+@pytest.mark.parametrize("b,t,c,groups", [
+    (2, 1000, 64, 32), (1, 37, 320, 32), (3, 4097, 320, 32), (2, 64, 1280, 32),
+    (1, 129, 2560, 32), (2, 50, 24, 4),
+])
+@pytest.mark.parametrize("act,eps", [("none", 1e-5), ("silu", 1e-6), ("relu", 1e-5)])
+def test_group_norm_matches_plain(dev, b, t, c, groups, act, eps):
+    gen = torch.Generator(device=dev).manual_seed(t * 10 + c)
+    x = (_randn(gen, dev, b, t, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    before = _build.launch_counts["group_norm"]
+    out = group_norm(x, g, bt, groups, eps, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["group_norm"] == before + 1
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert _rel(out, group_norm_plain(x, g, bt, groups, eps, act)) < GN_TOL
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 2, 256, 112, device=dev, dtype=torch.bfloat16)  # D = 112
+    with pytest.raises(ValueError):
+        flash_self_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError):
+        flash_self_attention_int8(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 1000, 40, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 1000 > 512 has no 128-multiple block dividing it
+        flash_self_attention_int8(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 256, 40, device=dev, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        flash_self_attention(q, q, q, 0.1)
+    g = torch.ones(36, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        group_norm(torch.zeros(1, 4, 36, device=dev, dtype=torch.bfloat16), g, g, 4)
+    g = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # C % groups != 0
+        group_norm(torch.zeros(1, 4, 64, device=dev, dtype=torch.bfloat16), g, g, 24)

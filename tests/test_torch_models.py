@@ -1,4 +1,6 @@
-"""The port's model modules against the JAX package's, on the same weights.
+"""The port's model modules against the JAX package's, on the same weights
+(and, for one UNet forward, with the int8-QK flash and GroupNorm kernels
+chosen on both sides).
 
 Weights are drawn over the flax modules' ``eval_shape`` and carried across
 with ``params_from_jax`` (``strict=True``: every port parameter has a JAX
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from _torch_parity import (
     PROMPT_LEN, TINY_UNET, caches_to_np, jax_taesd, jax_unet, port_taesd, port_unet,
@@ -28,6 +31,8 @@ from live2diff_tpu.models import layers as jl
 from live2diff_tpu.models import motion as jmo
 from live2diff_tpu.models import resnet as jres
 from live2diff_tpu.models.unet import UNetConfig as JaxUNetConfig
+from live2diff_tpu.ops import attention as jattn_ops
+from live2diff_tpu.ops import norm as jnorm
 from live2diff_tpu.stream.state_machine import (
     init_window_state, mask_to_bias, update_window_state,
 )
@@ -36,7 +41,10 @@ from live2diff_tpu_torch.models import attention as tatt
 from live2diff_tpu_torch.models import layers as tl
 from live2diff_tpu_torch.models import motion as tmo
 from live2diff_tpu_torch.models import resnet as tres
-from live2diff_tpu_torch.models.unet import UNetConfig
+from live2diff_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+from live2diff_tpu_torch.ops import attention as tattn_ops
+from live2diff_tpu_torch.ops import norm as tnorm
+from live2diff_tpu_torch.ops.choices import KernelChoices
 from live2diff_tpu_torch.stream import state_machine as tsm
 
 T = torch.from_numpy
@@ -210,3 +218,59 @@ def test_taesd_encode_decode_match_jax():
     assert enc.shape == (2, 8, 8, 4) and dec.shape == (1, 64, 64, 3)
     assert rel_err(enc.numpy(), ref_enc) < TOL
     assert rel_err(dec.numpy(), ref_dec) < TOL
+
+
+def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypatch):
+    """One warmup forward at a 32x32 latent (S = 1024 at the top level),
+    the port with ``flash_variant="int8"`` and ``gn_kernel_sites="all"``,
+    against the JAX UNet with ``LIVE2DIFF_FLASH=int8`` and every GroupNorm
+    site on, its Pallas kernels in interpret mode. In warmup mode only the
+    flash and GroupNorm kernels fire; the port's dispatch is counted: the
+    int8 variant takes exactly the top level's 5 self-attentions, and every
+    GroupNorm launches its kernel. Tolerance 5e-3 relative: the two sides
+    reach the attention with fp32 inputs that differ in the last bits, so
+    an int8 code of Q or K may round the other way at a .5 boundary (one
+    step, 1/127 of its group's range); that measured 4.7e-4 on the output
+    and at most 3.5e-4 on the caches."""
+    monkeypatch.setattr(jattn_ops, "_BACKEND", "tpu")
+    monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
+    monkeypatch.setenv("LIVE2DIFF_FLASH", "int8")
+    flash_calls, gn_calls = [], []
+    real_flash, real_gn = tattn_ops.flash_self_attention_int8, tnorm.group_norm
+    monkeypatch.setattr(tattn_ops, "flash_self_attention_int8",
+                        lambda *a, **kw: (flash_calls.append(tuple(a[0].shape)),
+                                          real_flash(*a, **kw))[1])
+    monkeypatch.setattr(tnorm, "group_norm",
+                        lambda *a, **kw: (gn_calls.append(1), real_gn(*a, **kw))[1])
+
+    unet, params = jax_unet(seed=8)
+    tunet = UNet3DConditionModel(UNetConfig(**TINY_UNET),
+                                 KernelChoices(flash_variant="int8", gn_kernel_sites="all"))
+    tunet.load_state_dict(params_from_jax(params), strict=True)
+    tunet.eval()
+    norms = []
+    for m in tunet.modules():
+        if isinstance(m, tl.FusedGroupNorm):
+            m.register_forward_pre_hook(lambda mod, args: norms.append(1))
+
+    lat, frames = 32, 2
+    cfg = JaxUNetConfig(**TINY_UNET)
+    jc = cfg.init_caches(lat, lat, 2, dtype=jnp.float32)
+    tc = UNetConfig(**TINY_UNET).init_caches(lat, lat, 2, dtype=torch.float32)
+    rs = np.random.RandomState(9)
+    ctx = rs.randn(1, PROMPT_LEN, 12).astype(np.float32)
+    xw, dw = (rs.randn(1, frames, lat, lat, 4).astype(np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        ref, jc = jax.jit(unet.apply, static_argnums=(6, 10))(
+            params, jnp.asarray(xw), jnp.array([261]), jnp.asarray(ctx), jnp.asarray(dw), jc,
+            "warmup", None, None, None, 0)
+    with torch.no_grad():
+        out, tc = tunet(T(xw), torch.tensor([261]), T(ctx), T(dw), tc, "warmup",
+                        None, None, None, 0)
+    # 2 down and 3 up spatial transformers at the 32x32 level, frames folded
+    # into the batch: [B * F, heads, S, dim_head]
+    assert flash_calls == [(frames, 2, lat * lat, 4)] * 5
+    assert len(gn_calls) == len(norms) > 0
+    assert rel_err(out.numpy(), ref) < 5e-3
+    for a, b in zip(caches_to_np(tc), caches_to_np(jc)):
+        assert rel_err(a, b) < 5e-3

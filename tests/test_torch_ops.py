@@ -1,5 +1,5 @@
-"""The port's ops against the JAX package's: attention, convs, LayerNorm,
-int8 quantisation.
+"""The port's ops against the JAX package's: attention (with the s-major and
+int8-QK flash variants), convs, LayerNorm, GroupNorm, int8 quantisation.
 
 On the CPU each kernel wrapper runs its plain torch version; these tests
 hold that version (and the op around it) against the JAX function on the
@@ -20,10 +20,14 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import live2diff_tpu.ops.attention as jattn
+import live2diff_tpu.ops.norm as jnorm
 from _torch_parity import rel_err
 from live2diff_tpu.models.motion import _quantize_kv as jax_quantize_kv
 from live2diff_tpu.ops.conv import conv3x3_fused, conv3x3_s2_fused
+from live2diff_tpu.ops.flash_attention import flash_self_attention as jax_flash_smajor
 from live2diff_tpu.ops.flash_attention import flash_self_attention_dmajor
+from live2diff_tpu.ops.flash_attention import flash_self_attention_int8 as jax_flash_int8
+from live2diff_tpu.ops.flash_attention import pick_block as jax_pick_block
 from live2diff_tpu.ops.norm import _layer_norm_kernel
 from live2diff_tpu.ops.norm import layer_norm as jax_layer_norm
 from live2diff_tpu.ops.stream_attention import (
@@ -31,7 +35,12 @@ from live2diff_tpu.ops.stream_attention import (
 )
 from live2diff_tpu_torch.models.motion import _quantize_kv
 from live2diff_tpu_torch.ops import attention as tattn
+from live2diff_tpu_torch.ops import norm as tnorm
+from live2diff_tpu_torch.ops.choices import KernelChoices
 from live2diff_tpu_torch.ops.conv import conv3x3
+from live2diff_tpu_torch.ops.flash_attention import (
+    flash_self_attention, flash_self_attention_int8, pick_block, quantize_groups,
+)
 from live2diff_tpu_torch.ops.norm import layer_norm
 from live2diff_tpu_torch.ops.stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8,
@@ -271,3 +280,161 @@ def test_quantize_kv_matches_jax_exactly(layout, dim):
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     assert np.abs(tq.numpy().astype(int)).max() == 127
+
+
+# ---------------------------------------------------------------------------
+# the opt-in kernels: s-major flash (#4), int8-QK flash (#5), GroupNorm (#8)
+# ---------------------------------------------------------------------------
+
+
+def test_flash_smajor_plain_matches_pallas_interpret():
+    """Kernel #4's plain version == the Pallas s-major flash kernel, with
+    two key blocks and two query blocks. fp32 on both sides: the same
+    blocked online softmax, summed in another order (1e-5 relative)."""
+    rs = np.random.RandomState(12)
+    b, h, s, d = 2, 2, 256, 40
+    q, k, v = (rs.randn(b, h, s, d).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_smajor(*map(jnp.asarray, (q, k, v)), scale=d**-0.5, block_q=128,
+                               block_k=128)
+    out = flash_self_attention(T(q), T(k), T(v), d**-0.5, block_q=128, block_k=128)
+    assert out.shape == q.shape
+    assert rel_err(out.numpy(), ref) < 1e-5
+
+
+def test_flash_int8_plain_matches_pallas_interpret():
+    """Kernel #5's plain version == the Pallas int8-QK flash kernel, with 4
+    query groups and 2 key groups. Both quantise with the same groups, the
+    same reciprocal and half-to-even rounding, so the int8 codes are equal
+    and the integer Q.K exact on both sides; what is left is fp32 summation
+    order in the softmax and P.V (1e-5 relative, where the int8 noise
+    against unquantised attention is ~1e-2). K carries a mean offset, so
+    its scales differ from Q's."""
+    rs = np.random.RandomState(13)
+    b, h, s, d = 2, 2, 512, 40
+    q = rs.randn(b, h, s, d).astype(np.float32)
+    k = (rs.randn(b, h, s, d) + 0.7).astype(np.float32)
+    v = rs.randn(b, h, s, d).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_int8(*map(jnp.asarray, (q, k, v)), scale=d**-0.5, block_q=128,
+                             block_k=256)
+    out = flash_self_attention_int8(T(q), T(k), T(v), d**-0.5, block_q=128, block_k=256)
+    assert rel_err(out.numpy(), ref) < 1e-5
+    # and the codes are the quantisation the function names: 4 q groups
+    codes, scales = quantize_groups(T(q), 128)
+    assert scales.shape == (b, h, 4) and codes.abs().max() == 127
+    np.testing.assert_array_equal(codes.numpy(), np.round(codes.numpy()))
+
+
+def test_pick_block_matches_jax():
+    for s, target in [(6144, 4096), (6144, 1024), (1536, 1024), (1536, 512), (4096, 4096),
+                      (1024, 1024), (96, 512), (2816, 1024), (6144, 512), (1536, 1536)]:
+        assert pick_block(s, target) == jax_pick_block(s, target), (s, target)
+
+
+@pytest.mark.parametrize("variant", ["smajor", "int8"])
+def test_dot_product_attention_variants_match_jax(monkeypatch, variant):
+    """dot_product_attention at S = 1024 (the gate passes) with a flash
+    variant == the JAX dispatch of LIVE2DIFF_FLASH=<variant> to its Pallas
+    kernel in interpret mode, blocks included (int8: block_k = min(S, 4096))."""
+    monkeypatch.setattr(jattn, "_BACKEND", "tpu")
+    monkeypatch.setenv("LIVE2DIFF_FLASH", variant)
+    rs = np.random.RandomState(14)
+    q, k, v = (rs.randn(1, 1024, 2, 8).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jattn.dot_product_attention(*map(jnp.asarray, (q, k, v)))
+    out = tattn.dot_product_attention(T(q), T(k), T(v), flash_variant=variant)
+    assert out.shape == q.shape
+    assert rel_err(out.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("shape_q,shape_k,taken", [
+    ((2, 1024, 2, 8), (2, 1024, 2, 8), True),     # the 32x32 level's self-attention
+    ((1, 1536, 2, 8), (1, 1536, 2, 8), True),     # 768x512's 32x48 level
+    ((2, 1024, 2, 8), (2, 77, 2, 8), False),      # cross-attention
+    ((2, 256, 2, 8), (2, 256, 2, 8), False),      # below 1024
+    ((1, 577, 2, 8), (1, 577, 2, 8), False),      # the ViT: not a multiple of 128
+    ((1, 2, 1024, 2, 8), (1, 2, 1024, 2, 8), False),  # rank 5
+])
+def test_flash_variant_gate(monkeypatch, shape_q, shape_k, taken):
+    """A variant takes exactly the calls that pass the JAX flash gate;
+    every other call keeps the d-major path."""
+    calls = []
+    real = tattn.flash_self_attention_int8
+    monkeypatch.setattr(tattn, "flash_self_attention_int8",
+                        lambda *a, **kw: (calls.append(a[0].shape), real(*a, **kw))[1])
+    rs = np.random.RandomState(15)
+    q = T(rs.randn(*shape_q).astype(np.float32))
+    k, v = (T(rs.randn(*shape_k).astype(np.float32)) for _ in range(2))
+    out = tattn.dot_product_attention(q, k, v, flash_variant="int8")
+    assert out.shape == q.shape
+    assert len(calls) == int(taken)
+    if not taken:
+        ref = tattn.dot_product_attention(q, k, v)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# GroupNorm: the JAX test's cases (tests/test_attention_ops.py:310). Both
+# sides take the same centred two-pass fp32 statistics; only summation order
+# differs (1e-5 relative).
+@pytest.mark.parametrize("b,t,c,act", [(2, 64, 320, "silu"), (3, 128, 64, "relu"),
+                                       (2, 96, 1280, "none")])
+def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
+    """The port's group_norm_act at a GroupNorm kernel site == the JAX
+    group_norm_act dispatched to the Pallas kernel (interpret mode), with
+    JAX's site gate lifted; both dispatches are shown to take the kernel."""
+    monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
+    monkeypatch.setattr(jattn, "_BACKEND", "tpu")
+    jax_calls, port_calls = [], []
+    real_j, real_t = jnorm._group_norm_kernel, tnorm.group_norm
+    monkeypatch.setattr(jnorm, "_group_norm_kernel",
+                        lambda *a, **kw: (jax_calls.append(1), real_j(*a, **kw))[1])
+    monkeypatch.setattr(tnorm, "group_norm",
+                        lambda *a, **kw: (port_calls.append(1), real_t(*a, **kw))[1])
+    rs = np.random.RandomState(16)
+    x = (rs.randn(b, t, c) * 3 + 1).astype(np.float32)
+    g, bt = rs.randn(c).astype(np.float32), rs.randn(c).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jnorm.group_norm_act(*map(jnp.asarray, (x, g, bt)), groups=32, eps=1e-5, act=act,
+                                   site="resnet")
+    out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=32, eps=1e-5, act=act, site="resnet",
+                               kernels=KernelChoices(gn_kernel_sites="all"))
+    assert jax_calls == [1] and port_calls == [1]
+    assert rel_err(out.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("sites,site,t,c,taken", [
+    ("all", "midas", 64, 256, True),
+    ({"resnet"}, "resnet", 64, 320, True),
+    ({"resnet"}, "attn_in", 64, 320, False),         # site not chosen
+    (frozenset(), "resnet", 64, 320, False),         # the default: no site
+    ("all", "resnet", 4096, 960, False),             # T * C > 3 * 2^20
+    ("all", "resnet", 16, 36, False),                # C % 8 != 0
+])
+def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken):
+    """The kernel runs where the JAX package's conditions hold
+    (norm.py:140-147) and the pipeline names the site."""
+    calls = []
+    real = tnorm.group_norm
+    monkeypatch.setattr(tnorm, "group_norm",
+                        lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
+    rs = np.random.RandomState(17)
+    x = T(rs.randn(1, t, c).astype(np.float32))
+    out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=4, act="silu",
+                               site=site, kernels=KernelChoices(gn_kernel_sites=sites))
+    assert len(calls) == int(taken)
+    torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c), 4,
+                                                           1e-5, "silu"))
+
+
+def test_kernel_choices_validate():
+    assert KernelChoices().gn_kernel_sites == frozenset()
+    assert KernelChoices().ln_kernel_at("vit") and not KernelChoices().ln_kernel_at("spatial")
+    assert KernelChoices(gn_kernel_sites="all").gn_kernel_at("midas")
+    assert not KernelChoices(ln_kernel_sites="none").ln_kernel_at("vit")
+    with pytest.raises(ValueError):
+        KernelChoices(flash_variant="fp8")
+    with pytest.raises(ValueError):
+        KernelChoices(gn_kernel_sites={"resnt"})
+    with pytest.raises(TypeError):
+        KernelChoices(gn_kernel_sites="resnet")
