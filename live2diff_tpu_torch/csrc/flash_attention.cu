@@ -27,35 +27,11 @@
 // one bank); the accumulator rows are rescaled with the lanes across a
 // row. wgmma, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int kThreads = 128;
-
-// rows [row0, row0 + 64) of one (b, h) slice into smem [64][DP];
-// rows past S and columns past D are zero
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int S,
-                                          int row_stride, int D) {
-  constexpr int cpr = DP / 8;  // 16-byte chunks per smem row
-  for (int i = threadIdx.x; i < 64 * cpr; i += kThreads) {
-    const int r = i / cpr, c8 = i % cpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c8 * 8 < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c8 * 8);
-    *reinterpret_cast<uint4*>(dst + r * DP + c8 * 8) = val;
-  }
-}
+using namespace flash;
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -83,7 +59,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row_stride = H * D;
+  const long long row_stride = (long long)H * D;
   const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
   const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
   const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
@@ -159,43 +135,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       }
     }
     __syncwarp();
-    // rescale the accumulator rows, lanes across the row
-    for (int rr = 0; rr < 16; ++rr) {
-      const float a = As[r0 + rr];
-      float* orow = Os + (r0 + rr) * DP;
-      for (int d = lane; d < DP; d += 32) orow[d] *= a;
-    }
+    rescale_rows<DP>(Os, As, r0, lane);
     __syncwarp();
-
-    // O[r0:r0+16, :] += P V
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Os + r0 * DP + n * 16, DP, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + r0 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(Os + r0 * DP + n * 16, o, DP, wmma::mem_row_major);
-    }
+    pv_accumulate<DP>(Os, Ps, Vs, r0);
   }
   __syncwarp();
 
-  // out = O / l, rows inside Sq and columns inside D only
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = r0 + i / D, d = i % D;
-    const int row = qt * BQ + r;
-    if (row < Sq) {
-      const float l = Ls[r];
-      const float inv = l == 0.f ? 1.f : 1.f / l;
-      out[((size_t)b * Sq + row) * row_stride + (size_t)h * D + d] =
-          __float2bfloat16(Os[r * DP + d] * inv);
-    }
-  }
+  store_rows<DP>(out + ((size_t)b * Sq * H + h) * D, row_stride, Os, Ls, r0, lane, qt * BQ, Sq,
+                 D);
 }
 
 template <int DP>
@@ -220,9 +167,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 // accumulator are updated once per key block of block_k keys, and p is
 // taken against the max of the whole block. A block of block_k keys (1024)
 // does not fit shared memory at once, so each block is walked twice in
-// 64-key tiles: the first sweep finds the block's row max (Q.K only), the
-// second computes p against it and accumulates P.V. That repeats Q.K, 1.5x
-// the tensor-core work of the d-major entry; what bounds it is the same
+// 64-key tiles (block_walk in flash_common.cuh, which the int8 entry runs
+// too): the first sweep finds the block's row max (Q.K only), the second
+// computes p against it and accumulates P.V. That repeats Q.K, 1.5x the
+// tensor-core work of the d-major entry; what bounds it is the same
 // (tensor-core operations at S = 4096 and 1024), and it is simple first.
 // ---------------------------------------------------------------------------
 
@@ -250,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_smajor_kernel(
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
 
-  load_tile<DP>(Qs, qb, qt * BQ, Sq, (int)q_ss, D);
+  load_tile<DP>(Qs, qb, qt * BQ, Sq, q_ss, D);
   for (int i = tid; i < BQ * DP; i += kThreads) Os[i] = 0.f;
   if (tid < BQ) {
     Ms[tid] = -INFINITY;
@@ -263,112 +211,27 @@ __global__ void __launch_bounds__(kThreads) flash_attention_smajor_kernel(
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + r0 * DP + kk * 16, DP);
 
-  // S[r0:r0+16, 0:64] = Q K^T of the tile in Ks
-  auto scores = [&]() {
+  block_walk<DP>(
+      vb, v_ss, Sk, D, block_k, Ps, Vs, Os, Ms, Ls, As,
+      [&](int k0, int k1) { load_tile<DP>(Ks, kb, k0, k1, k_ss, D); },
+      [&]() {  // S[r0:r0+16, 0:64] = Q K^T of the tile in Ks
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+        for (int n = 0; n < BK / 16; ++n) {
+          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+          wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(bt, Ks + n * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(acc, qa[kk], bt, acc);
-      }
-      wmma::store_matrix_sync(Ss + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // two lanes a row, 32 keys each, walked in a lane-skewed order (as above)
-  const int r = r0 + lane / 2, half = lane % 2;
-  float* srow = Ss + r * BK + half * 32;
-  bf16* prow = Ps + r * BK + half * 32;
-
-  for (int kb0 = 0; kb0 < Sk; kb0 += block_k) {
-    const int kb1 = min(kb0 + block_k, Sk);
-
-    // sweep 1: the block's row max
-    float bm = -INFINITY;
-    for (int k0 = kb0; k0 < kb1; k0 += BK) {
-      __syncthreads();
-      load_tile<DP>(Ks, kb, k0, kb1, (int)k_ss, D);
-      __syncthreads();
-      scores();
-      const int valid = kb1 - k0 - half * 32;
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int c = (j + lane) & 31;
-        if (c < valid) bm = fmaxf(bm, srow[c] * scale);
-      }
-      __syncwarp();
-    }
-    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
-    const float m_prev = Ms[r];
-    const float m_new = fmaxf(m_prev, bm);  // finite: key kb0 is valid
-    const float alpha = expf(m_prev - m_new);
-    __syncwarp();
-    if (half == 0) {
-      Ms[r] = m_new;
-      Ls[r] *= alpha;
-      As[r] = alpha;
-    }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const float a = As[r0 + rr];
-      float* orow = Os + (r0 + rr) * DP;
-      for (int d = lane; d < DP; d += 32) orow[d] *= a;
-    }
-    __syncwarp();
-
-    // sweep 2: p against the block max, l and O accumulated
-    for (int k0 = kb0; k0 < kb1; k0 += BK) {
-      __syncthreads();
-      load_tile<DP>(Ks, kb, k0, kb1, (int)k_ss, D);
-      load_tile<DP>(Vs, vb, k0, kb1, (int)v_ss, D);
-      __syncthreads();
-      scores();
-      const int valid = kb1 - k0 - half * 32;
-      float sum = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int c = (j + lane) & 31;
-        const float pj = c < valid ? expf(srow[c] * scale - m_new) : 0.f;
-        prow[c] = __float2bfloat16(pj);
-        sum += pj;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if (half == 0) Ls[r] += sum;
-      __syncwarp();
-#pragma unroll
-      for (int n = 0; n < DP / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::load_matrix_sync(o, Os + r0 * DP + n * 16, DP, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(a, Ps + r0 * BK + kk * 16, BK);
-          wmma::load_matrix_sync(bv, Vs + kk * 16 * DP + n * 16, DP);
-          wmma::mma_sync(o, a, bv, o);
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+            wmma::load_matrix_sync(bt, Ks + n * 16 * DP + kk * 16, DP);
+            wmma::mma_sync(acc, qa[kk], bt, acc);
+          }
+          wmma::store_matrix_sync(Ss + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
         }
-        wmma::store_matrix_sync(Os + r0 * DP + n * 16, o, DP, wmma::mem_row_major);
-      }
-      __syncwarp();
-    }
-  }
+        __syncwarp();
+      },
+      [&](int r, int c) { return Ss[r * BK + c] * scale; });
 
-  // out = O * (1 / l), rows inside Sq and columns inside D only
-  bf16* ob = out + b * o_sb + h * o_sh;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = r0 + i / D, d = i % D;
-    const int row = qt * BQ + rr;
-    if (row < Sq) {
-      const float l = Ls[rr];
-      const float inv = l == 0.f ? 1.f : 1.f / l;
-      ob[row * o_ss + d] = __float2bfloat16(Os[rr * DP + d] * inv);
-    }
-  }
+  store_rows<DP>(out + b * o_sb + h * o_sh, o_ss, Os, Ls, r0, lane, qt * BQ, Sq, D);
 }
 
 template <int DP>
@@ -417,7 +280,7 @@ extern "C" int flash_attention_smajor(const void* q, const void* k, const void* 
       H > 65535)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0 || strides[i] > 2147483647LL) return (int)cudaErrorInvalidValue;
+    if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch ((D + 15) / 16) {
     case 1: return launch_smajor<16>(q, k, v, out, strides, B, H, Sq, Sk, D, block_k, scale, st);

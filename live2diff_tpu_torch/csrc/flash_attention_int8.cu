@@ -6,43 +6,39 @@
 // group, s = max(max |x|, 1e-12) / 127 and code = round_half_even(x * (1/s));
 // a group is block_q query rows (block_k key rows) of one (b, h), the Pallas
 // kernel's tiles. The logits are the exact int32 Q.K times (s_k * s_q) *
-// scale; then an fp32 online softmax, p cast to bf16, and P.V on bf16
-// operands with fp32 accumulation, as in flash_attention.cu.
+// scale; then an fp32 online softmax updated once per key group, with p
+// taken against the group's max and cast to bf16, and P.V on bf16 operands
+// with fp32 accumulation.
 //
 // The groups are far larger than this kernel's tiles (512 query rows and up
 // to 4096 key rows, against 64-row tiles), so a tile cannot find its own
 // scale. Two kernels: group_amax_kernel reduces max |x| over each group of Q
 // and of K (64-row chunks, merged by atomicMax on the float's bits, exact
 // and order-free since |x| >= 0); flash_int8_kernel then quantises each
-// tile of 64 rows in shared memory with the scales of its rows' groups,
+// tile of 64 rows in shared memory with the scales of its rows' groups and
 // multiplies on the int8 tensor cores (WMMA 16x16x16 s8 -> s32; D zero-padded
-// to a multiple of 16, exact in int8) and runs the softmax and P.V of
-// flash_attention.cu, one online-softmax update per 64-key tile.
+// to a multiple of 16, exact in int8). Its softmax is the s-major block walk
+// of flash_common.cuh with the key groups as blocks: a first sweep over a
+// group's 64-key tiles finds the row max, a second takes p against it. So p
+// is rounded to bf16 from the same fp32 logits and the same max as in the
+// Pallas kernel and the plain version, and the kernel differs from them only
+// in the order of its fp32 sums.
 //
 // Layout: q, k, v, out [B, H, S, D] bf16, read through strides with unit
 // stride along D (the model's [B, S, H, D] transposed, without a copy).
 //
 // What bounds it: tensor-core operations at S = 4096 (the int8 half of the
 // work at twice the bf16 rate) and, for the amax pass, the bytes of Q and K
-// (read twice in all). This first version is simple, not fast: the int8
-// tiles live in shared memory in a chunk-major [D/16][64][16] layout, so
-// every WMMA operand pointer is 32-byte aligned, and the scores go through
-// shared memory as in flash_attention.cu.
+// (read twice in all). This first version is simple, not fast: each key
+// tile is quantised twice (once a sweep), the int8 tiles live in shared
+// memory in a chunk-major [D/16][64][16] layout, so every WMMA operand
+// pointer is 32-byte aligned, and the int32 scores go through shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int kThreads = 128;
+using namespace flash;
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -93,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) group_amax_kernel(
 
 // rows [row0, row0 + 64) of one (b, h) slice, quantised with their groups'
 // scales into dst [DP/16][64][16] int8; row_scale[r] gets row r's scale.
-// Rows past S and columns past D are zero.
+// Rows at or past S and columns past D are zero.
 template <int DP>
 __device__ __forceinline__ void quantise_tile(signed char* dst, float* row_scale,
                                               const bf16* src, int row0, int S,
@@ -120,25 +116,10 @@ __device__ __forceinline__ void quantise_tile(signed char* dst, float* row_scale
   }
 }
 
-// rows [row0, row0 + 64) of one (b, h) slice into smem [64][DP] bf16
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int S,
-                                          long long row_stride, int D) {
-  constexpr int cpr = DP / 8;
-  for (int i = threadIdx.x; i < 64 * cpr; i += kThreads) {
-    const int r = i / cpr, c8 = i % cpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c8 * 8 < D)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c8 * 8);
-    *reinterpret_cast<uint4*>(dst + r * DP + c8 * 8) = val;
-  }
-}
-
 template <int DP>
 constexpr size_t smem_bytes() {
   return (size_t)BQ * DP * sizeof(float)    // output accumulator
          + (size_t)BQ * BK * sizeof(int)    // int32 scores
-         + (size_t)BQ * BK * sizeof(float)  // fp32 logits
          + (size_t)BQ * BK * sizeof(bf16)   // probabilities
          + (size_t)BK * DP * sizeof(bf16)   // V tile
          + (size_t)2 * 64 * DP              // Q and K int8 tiles
@@ -157,8 +138,7 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* Os = reinterpret_cast<float*>(smem_raw);
   int* Si = reinterpret_cast<int*>(Os + BQ * DP);
-  float* Sf = reinterpret_cast<float*>(Si + BQ * BK);
-  bf16* Ps = reinterpret_cast<bf16*>(Sf + BQ * BK);
+  bf16* Ps = reinterpret_cast<bf16*>(Si + BQ * BK);
   bf16* Vs = Ps + BQ * BK;
   signed char* Q8 = reinterpret_cast<signed char*>(Vs + BK * DP);
   signed char* K8 = Q8 + 64 * DP;
@@ -191,102 +171,29 @@ __global__ void __launch_bounds__(kThreads) flash_int8_kernel(
   for (int kk = 0; kk < DP / 16; ++kk)
     wmma::load_matrix_sync(qa[kk], Q8 + kk * 64 * 16 + r0 * 16, 16);
 
-  const int r = r0 + lane / 2, half = lane % 2;
-  const float sq_row = SQ[r];
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    quantise_tile<DP>(K8, SK, kb, k0, Sk, k_ss, D, ka_bits, block_k);
-    load_tile<DP>(Vs, vb, k0, Sk, v_ss, D);
-    __syncthreads();
-
-    // int32 scores S[r0:r0+16, 0:64] = Q8 K8^T, exact
+  // the key groups are the walk's blocks: a tile never straddles two
+  block_walk<DP>(
+      vb, v_ss, Sk, D, block_k, Ps, Vs, Os, Ms, Ls, As,
+      [&](int k0, int k1) { quantise_tile<DP>(K8, SK, kb, k0, k1, k_ss, D, ka_bits, block_k); },
+      [&]() {  // int32 scores S[r0:r0+16, 0:64] = Q8 K8^T, exact
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-      wmma::fill_fragment(acc, 0);
+        for (int n = 0; n < BK / 16; ++n) {
+          wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
+          wmma::fill_fragment(acc, 0);
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bt;
-        wmma::load_matrix_sync(bt, K8 + kk * 64 * 16 + n * 16 * 16, 16);
-        wmma::mma_sync(acc, qa[kk], bt, acc);
-      }
-      wmma::store_matrix_sync(Si + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
-    }
-    __syncwarp();
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bt;
+            wmma::load_matrix_sync(bt, K8 + kk * 64 * 16 + n * 16 * 16, 16);
+            wmma::mma_sync(acc, qa[kk], bt, acc);
+          }
+          wmma::store_matrix_sync(Si + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
+        }
+        __syncwarp();
+      },
+      // logit = float(int) * ((s_k * s_q) * scale), the Pallas kernel's order
+      [&](int r, int c) { return (float)Si[r * BK + c] * ((SK[c] * SQ[r]) * scale); });
 
-    // logits = float(int) * ((s_k * s_q) * scale); online softmax, two lanes
-    // a row in a lane-skewed order (as flash_attention.cu)
-    {
-      const int* irow = Si + r * BK + half * 32;
-      float* frow = Sf + r * BK + half * 32;
-      const float* sk_row = SK + half * 32;
-      const int valid = Sk - k0 - half * 32;
-      float mx = -INFINITY;
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int c = (j + lane) & 31;
-        const float x = c < valid ? (float)irow[c] * ((sk_row[c] * sq_row) * scale) : -INFINITY;
-        frow[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_prev = Ms[r];
-      const float m_new = fmaxf(m_prev, mx);  // finite: key k0 is always valid
-      const float alpha = expf(m_prev - m_new);
-      bf16* prow = Ps + r * BK + half * 32;
-      float sum = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int c = (j + lane) & 31;
-        const float pj = expf(frow[c] - m_new);
-        prow[c] = __float2bfloat16(pj);
-        sum += pj;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();  // both lanes of the row have read Ms[r]
-      if (half == 0) {
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * alpha + sum;
-        As[r] = alpha;
-      }
-    }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const float a = As[r0 + rr];
-      float* orow = Os + (r0 + rr) * DP;
-      for (int d = lane; d < DP; d += 32) orow[d] *= a;
-    }
-    __syncwarp();
-
-    // O[r0:r0+16, :] += P V
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Os + r0 * DP + n * 16, DP, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + r0 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(Os + r0 * DP + n * 16, o, DP, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // out = O * (1 / l), rows inside Sq and columns inside D only
-  bf16* ob = out + b * o_sb + h * o_sh;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = r0 + i / D, d = i % D;
-    const int row = qt * BQ + rr;
-    if (row < Sq) {
-      const float l = Ls[rr];
-      const float inv = l == 0.f ? 1.f : 1.f / l;
-      ob[row * o_ss + d] = __float2bfloat16(Os[rr * DP + d] * inv);
-    }
-  }
+  store_rows<DP>(out + b * o_sb + h * o_sh, o_ss, Os, Ls, r0, lane, qt * BQ, Sq, D);
 }
 
 template <int DP>

@@ -3,8 +3,9 @@
 Each source is compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds. Libraries go to
-``build/kernels/`` at the repository root, named by a hash of their source,
-so an edited source is rebuilt and an unchanged one is reused.
+``build/kernels/`` at the repository root, named by a hash of their source
+and of the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
@@ -13,6 +14,7 @@ port on a machine with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -66,9 +68,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for path in [os.path.join(CSRC_DIR, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

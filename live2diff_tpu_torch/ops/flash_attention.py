@@ -177,7 +177,10 @@ def quantize_groups(x: torch.Tensor, block: int):
     ``[B, H, S, D]``, scales ``[B, H, S // block]``)."""
     b, h, s, d = x.shape
     xg = x.float().reshape(b, h, s // block, block * d)
-    scales = torch.clamp_min(xg.abs().amax(dim=-1), 1e-12) / 127.0
+    amax = torch.clamp_min(xg.abs().amax(dim=-1), 1e-12)
+    # a tensor divisor: on CUDA, torch divides by a Python scalar through its
+    # reciprocal, which can move a scale by one ulp and with it some codes
+    scales = amax / torch.full_like(amax, 127.0)
     codes = torch.round(xg * torch.reciprocal(scales)[..., None])
     return codes.reshape(b, h, s, d), scales
 
