@@ -6,13 +6,17 @@
 Phases, each printed as it ends; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the time to build the port's CUDA kernels with nvcc.
+   versions, the max SM clock (it sets the exponential rate of the flash
+   bounds), and the time to build the port's CUDA kernels with nvcc.
 2. kernels: each hand-written kernel against its plain torch version on the
    card, at every shape the 512x512 and 768x512 stream steps and
    ``prepare`` give it, with its time, the plain version's time, one
    library call's time as a yardstick (never used by the port), and its
-   roofline bound. The GroupNorm kernel is checked after phase 7, at the
-   shapes that phase recorded.
+   roofline bound (for the flash kernels the larger of the bytes, the
+   tensor-core operations and the exponentials at 16 a clock per SM). The
+   GroupNorm kernel is checked after phase 7, at the shapes that phase
+   recorded. Then the int8 KV cache's quantisation on the card against the
+   CPU, bit for bit.
 3. small input: a narrow pipeline (64x64 frames, a narrow 384x384 DPT) on
    the card, bf16 with the kernels, against the same weights and noise in
    fp32 on the CPU.
@@ -20,7 +24,9 @@ Phases, each printed as it ends; any failure exits non-zero:
    motion UNet, 2 LCM steps, TAESD, DPT-hybrid depth, int8 KV cache, uint8
    frames), random weights from seed 0: ``prepare`` on 8 warmup frames,
    then streamed frames, timed and profiled; every kernel's launches in
-   ``prepare`` and per stream step are asserted.
+   ``prepare`` and per stream step are asserted, and the profiled launches
+   a step may not exceed 7,265. Prints the host time the flash kernels
+   spend encoding TMA tensor maps, per call.
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
    the bf16 stream-attention kernel's launches asserted.
@@ -56,6 +62,13 @@ import time
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 # dense tensor-core bf16 and int8; fp32 outside tensor cores
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# exponentials: 16 a clock per SM (compute capability 9.0), times the SMs
+# and the card's max SM clock, both read in main()
+SFU_PER_SM_CLOCK = 16
+SFU_RATE = []  # [exp / s], set once the card is known
+# kernel launches a main-path stream step in the profile, measured before
+# the int8 KV cache divided by a tensor: that division must not add any
+MAIN_PATH_LAUNCHES_PER_STEP = 7265
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
 TF32_OFF = "torch.backends.cudnn.allow_tf32 = False; torch.backends.cuda.matmul.allow_tf32 = False"
@@ -138,11 +151,16 @@ def time_ms(fn, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def bound(nbytes: float, *ops):
+def bound(nbytes: float, *ops, exps: float = 0):
     """The larger of the bytes' time at MEM_BW and the operations' time,
-    ``ops`` being (count, peak name) pairs, each at its own peak."""
+    ``ops`` being (count, peak name) pairs, each at its own peak (summed:
+    they share the tensor cores or the fp32 lanes). ``exps`` exponentials
+    run on the SFUs at the same time as the tensor cores, so the operations'
+    time is the larger of the two."""
     t_bytes = nbytes / MEM_BW * 1e3
     t_ops = sum(n / PEAK[peak] * 1e3 for n, peak in ops)
+    if exps:
+        t_ops = max(t_ops, exps / SFU_RATE[0] * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -247,7 +265,7 @@ def check_flash(torch, gen, dev):
         err, rel = compare(out, ref, 2e-2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                           (4 * b * h * sq * sk * d, "bf16"))
+                           (4 * b * h * sq * sk * d, "bf16"), exps=b * h * sq * sk)
         rows.append(dict(
             shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls, prepare_calls=prep,
             max_abs_err=err, rel_err=rel, tol=2e-2,
@@ -416,9 +434,9 @@ def check_flash_variant(torch, gen, dev, variant: str):
         nbytes = 2 * 4 * q.numel()
         work = 2 * b * h * s * s * d  # each of the two products
         if variant == "int8":
-            b_ms, b_by = bound(nbytes, (work, "int8"), (work, "bf16"))
+            b_ms, b_by = bound(nbytes, (work, "int8"), (work, "bf16"), exps=b * h * s * s)
         else:
-            b_ms, b_by = bound(nbytes, (2 * work, "bf16"))
+            b_ms, b_by = bound(nbytes, (2 * work, "bf16"), exps=b * h * s * s)
         rows.append(dict(
             shape=f"q[{b},{h},{s},{d}] blocks (512, {fa.pick_block(s, bk)})", calls=calls,
             prepare_calls=prep, max_abs_err=err, rel_err=rel, tol=max_tol, rms_err=rms,
@@ -430,6 +448,25 @@ def check_flash_variant(torch, gen, dev, variant: str):
             library=library_note,
         ))
     return rows
+
+
+def check_quantize_kv(torch):
+    """The int8 KV cache's quantisation (``models/motion.py:_quantize_kv``)
+    on the card against the CPU, bit for bit, at the four ``[2, HW, C]``
+    cache writes of a 512x512 step. Returns the shapes checked."""
+    from live2diff_tpu_torch.models.motion import _quantize_kv
+
+    shapes = []
+    for c, hw in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
+        gen = torch.Generator().manual_seed(c + hw)
+        x = (torch.randn(2, hw, c, generator=gen) * torch.rand(1, 1, c, generator=gen) * 4
+             ).to(torch.bfloat16)
+        codes, scales = _quantize_kv(x.cuda(), 1)
+        codes_cpu, scales_cpu = _quantize_kv(x, 1)
+        if not (torch.equal(scales.cpu(), scales_cpu) and torch.equal(codes.cpu(), codes_cpu)):
+            raise AssertionError(f"_quantize_kv at [2, {hw}, {c}]: card and CPU differ")
+        shapes.append(f"[2, {hw}, {c}] bit-equal")
+    return shapes
 
 
 GN_ACTS = {"silu": "F.silu", "relu": "torch.relu", "none": "identity"}
@@ -896,6 +933,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_RATE.append(SFU_PER_SM_CLOCK * sms * max_sm_mhz * 1e6)
+    print(f"exponential rate for the flash bounds: {SFU_PER_SM_CLOCK} a clock x {sms} SMs x "
+          f"{max_sm_mhz:g} MHz = {SFU_RATE[0]:.4g} / s")
     t0 = time.perf_counter()
     _build.build(_build.SOURCES)
     print(f"kernel build ({len(_build.SOURCES)} nvcc in parallel): "
@@ -933,6 +978,7 @@ def main() -> int:
     ]
     for k in kernels:
         print_rows(k)
+    print(f"int8 KV cache quantisation, card against CPU: {check_quantize_kv(torch)}")
     sys.stdout.flush()
 
     phase("small input: card (bf16, kernels) against CPU (fp32, plain), with a narrow DPT")
@@ -943,9 +989,21 @@ def main() -> int:
     phase("slice at full width: bench.py's main path (512x512, SD-1.5 motion UNet, TAESD, "
           "DPT-hybrid depth, int8 cache)")
     kept = []  # the three 512x512 int8-cache pipelines, streamed in turn after phase 7
+    from live2diff_tpu_torch.ops.flash_attention import tensor_map_encode_stats
+
+    ns0, calls0 = tensor_map_encode_stats()
     result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
                                 EXPECTED_PREPARE, profile=True, keep=kept, kv_cache_dtype="int8")
+    ns1, calls1 = tensor_map_encode_stats()
     report_stream(result)
+    print(f"flash tensor-map encoding on the host: {(ns1 - ns0) / 1e3 / (calls1 - calls0):.3f} us "
+          f"a call over the {calls1 - calls0} flash launches of this phase (3 maps each)")
+    step_launches = result["profile"]["kernels_per_call"]
+    print(f"profiled launches a stream step: {step_launches} (at most "
+          f"{MAIN_PATH_LAUNCHES_PER_STEP})")
+    if isinstance(step_launches, float) and step_launches > MAIN_PATH_LAUNCHES_PER_STEP:
+        raise AssertionError(f"main path: {step_launches} launches a step, more than "
+                             f"{MAIN_PATH_LAUNCHES_PER_STEP}")
     main_path = headline(result)
     del result
 

@@ -18,7 +18,7 @@ symmetric per-(slot, channel) scales.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +27,21 @@ from ..ops.attention import dot_product_attention, stream_window_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..stream.state import KVCache
 from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, sinusoidal_table
+
+
+# one 0-dim 127.0 per device, made at first use
+_DIVISORS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _divisor_127(device: torch.device) -> torch.Tensor:
+    """127.0 as a 0-dim tensor on ``device``. On CUDA, torch divides by a
+    Python scalar through its reciprocal, which can move a scale one ulp off
+    the true quotient (and some codes with it); a tensor divisor divides.
+    Made once, so a step adds no launch and no host-to-device copy."""
+    t = _DIVISORS.get(device)
+    if t is None:
+        t = _DIVISORS[device] = torch.tensor(127.0, dtype=torch.float32, device=device)
+    return t
 
 
 def _quantize_kv(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,7 +53,7 @@ def _quantize_kv(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]
     """
     xf = x.float()
     amax = xf.abs().amax(dim=dim)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / _divisor_127(xf.device)
     q = torch.clamp(torch.round(xf / scale.unsqueeze(dim)), -127, 127).to(torch.int8)
     return q, scale
 

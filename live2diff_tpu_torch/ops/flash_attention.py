@@ -105,6 +105,18 @@ def flash_attention(
     return out
 
 
+def tensor_map_encode_stats():
+    """(host ns spent encoding TMA tensor maps, launches that encoded them)
+    summed over both entries of ``csrc/flash_attention.cu`` since it was
+    loaded: each launch encodes three maps on the host."""
+    fn = _build.load("flash_attention").flash_attention_encode_stats
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_longlong
+    calls = ctypes.c_longlong(0)
+    ns = fn(ctypes.byref(calls))
+    return ns, calls.value
+
+
 # ---------------------------------------------------------------------------
 # [B, H, S, D] entries: s-major and int8-QK
 # ---------------------------------------------------------------------------

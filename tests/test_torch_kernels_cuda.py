@@ -8,8 +8,9 @@ channel counts that take the conv kernel's scalar load path, row counts
 that are not a multiple of the LayerNorm kernel's 8 rows a block, both
 cache dtypes of stream attention, the s-major and int8-QK flash entries on
 strided ``[B, H, S, D]`` views at lengths that are not multiples of their
-64-row tiles, GroupNorm at ragged row counts with each activation, and the
-wrappers' refusals. Run them on the card, from the repository root:
+tiles (the bf16 flash entries: 128 query rows, 128 keys or 64 at D > 128),
+the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
+counts with each activation, and the wrappers' refusals. Run them on the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
@@ -95,6 +96,73 @@ def test_flash_attention_matches_plain(dev, b, sq, sk, h, d):
     assert _build.launch_counts["flash_attention"] == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert _rel(out, flash_attention_plain(q, k, v, d ** -0.5)) < ATTN_TOL
+
+
+# the edges of the 128-row query tile and of the key tiles (128 keys; 64 at
+# D > 128), every head-width chunking (D padded to 64, 128, 192), and the
+# warmup motion attention's B * H = 4096 * 8 at S = 8
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    *[(1, sq, sk, 2, 40) for sq in (127, 129, 257) for sk in (77, 129, 255)],
+    *[(1, 129, 255, 2, d) for d in (8, 24, 40, 64, 80, 96, 128, 160)],
+    (1, 257, 129, 2, 160), (2, 127, 77, 3, 160),
+    (4096, 8, 8, 8, 40),
+])
+def test_flash_attention_tile_edges(dev, b, sq, sk, h, d):
+    test_flash_attention_matches_plain(dev, b, sq, sk, h, d)
+
+
+def _strided_bhsd(gen, dev, b, s, h, d, pad):
+    """A [B, H, S, D] view of [B, S, H, D] rows whose batch stride is pad
+    elements longer than S * H * D."""
+    base = _randn(gen, dev, b, s * h * d + pad).to(torch.bfloat16)
+    return base.as_strided((b, h, s, d), (s * h * d + pad, d, h * d, 1))
+
+
+@pytest.mark.parametrize("b,h,s,d,block_q,block_k,pad", [
+    (1, 2, 1536, 40, 512, 768, 0),    # 768x512's second level, two blocks
+    (1, 2, 1536, 80, 512, 768, 0),
+    (1, 2, 1000, 80, 1024, 1024, 0),  # one block ending inside a key tile
+    (1, 2, 300, 160, 512, 1024, 0),   # 64-key tiles, the block ends inside one
+    (2, 2, 384, 40, 128, 128, 64),    # batch stride S * H * D + 64
+    (2, 3, 257, 96, 512, 1024, 8),
+])
+def test_flash_smajor_tile_edges(dev, b, h, s, d, block_q, block_k, pad):
+    gen = torch.Generator(device=dev).manual_seed(s * 10 + d + pad)
+    q, k, v = (_strided_bhsd(gen, dev, b, s, h, d, pad) for _ in range(3))
+    before = _build.launch_counts["flash_attention_smajor"]
+    out = flash_self_attention(q, k, v, d ** -0.5, block_q, block_k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_smajor"] == before + 1
+    ref = flash_self_attention_plain(q, k, v, d ** -0.5, block_q, block_k)
+    assert _rel(out, ref) < ATTN_TOL
+    assert _rms(out, ref) < VARIANT_RMS_TOL
+
+
+# a negative scale takes the row minimum of the raw scores, a zero scale
+# gives uniform weights: the kernels take m = max(s * c) either way
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_entries_take_any_scale(dev, scale):
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (_randn(gen, dev, 1, 300, 2, 40).to(torch.bfloat16) for _ in range(3))
+    ref = flash_attention_plain(q, k, v, scale)
+    assert _rel(flash_attention(q, k, v, scale), ref) < ATTN_TOL
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = flash_self_attention(qt, kt, vt, scale, 512, 1024)
+    assert _rel(out, flash_self_attention_plain(qt, kt, vt, scale, 512, 1024)) < ATTN_TOL
+
+
+# the int8 KV cache's [steps, HW, C] writes at 512x512, one per UNet level
+@pytest.mark.parametrize("c,hw", [(320, 4096), (640, 1024), (1280, 256), (1280, 64)])
+def test_quantize_kv_matches_cpu(dev, c, hw):
+    from live2diff_tpu_torch.models.motion import _quantize_kv
+
+    gen = torch.Generator().manual_seed(c + hw)
+    x = (torch.randn(2, hw, c, generator=gen) * torch.rand(1, 1, c, generator=gen) * 4
+         ).to(torch.bfloat16)
+    codes, scales = _quantize_kv(x.to(dev), 1)
+    codes_cpu, scales_cpu = _quantize_kv(x, 1)
+    assert torch.equal(scales.cpu(), scales_cpu)
+    assert torch.equal(codes.cpu(), codes_cpu)
 
 
 @pytest.mark.parametrize("b,h,w,cin,stride,bias,skip,relu", [
