@@ -25,8 +25,8 @@ Phases, each printed as it ends; any failure exits non-zero:
    frames), random weights from seed 0: ``prepare`` on 8 warmup frames,
    then streamed frames, timed and profiled; every kernel's launches in
    ``prepare`` and per stream step are asserted, and the profiled launches
-   a step may not exceed 7,265. Prints the host time the flash kernels
-   spend encoding TMA tensor maps, per call.
+   a step may not exceed 7,265. Prints the host time the flash kernels and
+   the conv spend encoding TMA tensor maps, per call.
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
    the bf16 stream-attention kernel's launches asserted.
@@ -126,17 +126,20 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-_L2_FLUSH = []  # a buffer larger than the 50 MB L2, made at first use
+_L2_FLUSH = []  # a buffer ten times the 50 MB L2, made at first use
 
 
 def time_ms(fn, reps: int) -> float:
     """Mean device ms per call over ``reps`` calls after one warm-up call.
     The L2 cache is overwritten before each call (outside its events): in
-    the stream step every kernel finds its inputs cold."""
+    the stream step every kernel finds its inputs cold. Overwriting 512 MB
+    keeps the card busy for ~0.2 ms, longer than the host takes to launch a
+    call, so the call is queued before its start event runs and the host's
+    time does not count."""
     import torch
 
     if not _L2_FLUSH:
-        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8, device="cuda"))
+        _L2_FLUSH.append(torch.empty(512 << 20, dtype=torch.uint8, device="cuda"))
     fn()
     torch.cuda.synchronize()
     events = []
@@ -282,30 +285,39 @@ def check_conv(torch, gen, dev, stride: int):
 
     from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 
-    # (B, H = W, Cin, bias, skip+ReLU, calls per stream step, calls in
-    # prepare): the stream step encodes the frame and its depth image as one
-    # batch (B = 2: 31 stride-1 calls, 4 of them at 512x512, 9 at each
-    # other level) and decodes one frame (B = 1: 33 calls, 4 / 10 / 10 / 9
-    # from 512x512 down); prepare() encodes 8 frames and their 8 depth
-    # images (B = 16) and decodes 8 frames (B = 8), largest level shown
+    # (B, H, W, Cin, bias, skip+ReLU, calls per 512x512 stream step, calls
+    # per 768x512 step, calls in prepare): a step encodes the frame and its
+    # depth image as one batch (B = 2: 31 stride-1 calls, 4 of them at full
+    # size, 9 at each other level) and decodes one frame (B = 1: 33 calls,
+    # 4 / 10 / 10 / 9 from full size down); prepare() encodes 8 frames and
+    # their 8 depth images (B = 16) and decodes 8 frames (B = 8) at 512x512,
+    # largest level shown
     if stride == 1:
-        shapes = ((2, 512, 3, True, False, 1, 0), (2, 512, 64, True, True, 3, 0),
-                  (2, 256, 64, True, True, 9, 0), (2, 128, 64, True, True, 9, 0),
-                  (2, 64, 64, True, True, 9, 0), (1, 512, 64, True, True, 4, 0),
-                  (1, 256, 64, True, True, 10, 0), (1, 128, 64, True, True, 10, 0),
-                  (1, 64, 64, True, True, 9, 0), (16, 512, 3, True, False, 0, 1),
-                  (16, 512, 64, True, True, 0, 3), (8, 512, 64, True, True, 0, 4))
+        shapes = ((2, 512, 512, 3, True, False, 1, 0, 0), (2, 512, 512, 64, True, True, 3, 0, 0),
+                  (2, 256, 256, 64, True, True, 9, 0, 0), (2, 128, 128, 64, True, True, 9, 0, 0),
+                  (2, 64, 64, 64, True, True, 9, 0, 0), (1, 512, 512, 64, True, True, 4, 0, 0),
+                  (1, 256, 256, 64, True, True, 10, 0, 0), (1, 128, 128, 64, True, True, 10, 0, 0),
+                  (1, 64, 64, 64, True, True, 9, 0, 0),
+                  (2, 512, 768, 3, True, False, 0, 1, 0), (2, 512, 768, 64, True, True, 0, 3, 0),
+                  (2, 256, 384, 64, True, True, 0, 9, 0), (2, 128, 192, 64, True, True, 0, 9, 0),
+                  (2, 64, 96, 64, True, True, 0, 9, 0), (1, 512, 768, 64, True, True, 0, 4, 0),
+                  (1, 256, 384, 64, True, True, 0, 10, 0), (1, 128, 192, 64, True, True, 0, 10, 0),
+                  (1, 64, 96, 64, True, True, 0, 9, 0),
+                  (16, 512, 512, 3, True, False, 0, 0, 1), (16, 512, 512, 64, True, True, 0, 0, 3),
+                  (8, 512, 512, 64, True, True, 0, 0, 4))
     else:  # the three encoder downsamples: no bias, no ReLU
-        shapes = ((2, 512, 64, False, False, 1, 0), (2, 256, 64, False, False, 1, 0),
-                  (2, 128, 64, False, False, 1, 0), (16, 512, 64, False, False, 0, 1))
+        shapes = ((2, 512, 512, 64, False, False, 1, 0, 0), (2, 256, 256, 64, False, False, 1, 0, 0),
+                  (2, 128, 128, 64, False, False, 1, 0, 0), (2, 512, 768, 64, False, False, 0, 1, 0),
+                  (2, 256, 384, 64, False, False, 0, 1, 0), (2, 128, 192, 64, False, False, 0, 1, 0),
+                  (16, 512, 512, 64, False, False, 0, 0, 1))
     rows = []
-    for nb, hw, cin, has_bias, fused, calls, prep in shapes:
-        x = torch.randn(nb, hw, hw, cin, generator=gen, device=dev).to(torch.bfloat16)
+    for nb, h, wd, cin, has_bias, fused, calls, calls_wide, prep in shapes:
+        x = torch.randn(nb, h, wd, cin, generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn(64, cin, 3, 3, generator=gen, device=dev) / (9 * cin) ** 0.5
              ).to(torch.bfloat16)
         bias = torch.randn(64, generator=gen, device=dev).to(torch.bfloat16) if has_bias else None
-        ho = hw // stride
-        skip = (torch.randn(nb, ho, ho, 64, generator=gen, device=dev).to(torch.bfloat16)
+        ho, wo = h // stride, wd // stride
+        skip = (torch.randn(nb, ho, wo, 64, generator=gen, device=dev).to(torch.bfloat16)
                 if fused else None)
         args = (x, w, bias, skip, fused, stride)
         out = conv3x3(*args)
@@ -314,17 +326,21 @@ def check_conv(torch, gen, dev, stride: int):
         torch.cuda.synchronize()
         # same bf16 operands and fp32 sums in another order; bf16 output rounding
         err, rel = compare(out, ref, 1e-2)
-        out_elems = nb * ho * ho * 64
+        out_elems = nb * ho * wo * 64
         nbytes = 2 * (x.numel() + w.numel() + 64 * has_bias + out_elems * (1 + fused))
         b_ms, b_by = bound(nbytes, (2 * out_elems * 9 * cin, "bf16"))
-        x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last for cuDNN
+        # channels-last views for cuDNN, the weight's copy made once, untimed
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = w.contiguous(memory_format=torch.channels_last)
         rows.append(dict(
-            shape=f"x[{nb},{hw},{hw},{cin}] stride {stride}" + (" +skip+relu" if fused else ""),
-            calls=calls, prepare_calls=prep, max_abs_err=err, rel_err=rel, tol=1e-2,
+            shape=f"x[{nb},{h},{wd},{cin}] stride {stride}" + (" +skip+relu" if fused else ""),
+            calls=calls, calls_768x512=calls_wide, prepare_calls=prep, max_abs_err=err,
+            rel_err=rel, tol=1e-2,
             ms=time_ms(lambda: conv3x3(*args), 50),
             plain_ms=time_ms(lambda: conv3x3_plain(*args), 5),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.conv2d(x_cl, w, bias, stride, 1), 50),
+            library_ms=time_ms(lambda: F.conv2d(x_cl, w_cl, bias, stride, 1), 50),
+            library="F.conv2d, channels-last: the conv and bias only (no skip add, no ReLU)",
         ))
     return rows
 
@@ -519,13 +535,18 @@ def summarise(name, source, replaces, rows):
 
     by_bytes = sum(r["calls"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     by_ops = sum(r["calls"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    wide = {}
+    if any("calls_768x512" in r for r in rows):  # the same totals over a 768x512 step
+        wide = {"per_768x512_step": {
+            key: sum(r.get("calls_768x512", 0) * r[key] for r in rows)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=None,
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         library_ms=total("library_ms"), per="stream step (sum over shapes of calls x ms)",
-        shapes=rows,
+        **wide, shapes=rows,
     )
 
 
@@ -887,9 +908,16 @@ def print_rows(k) -> None:
     for r in k["shapes"]:
         extra = "".join(f" {key} {r[key]:.2e}" for key in (
             "rms_err", "unquantised_rel_err", "unquantised_rms_err") if key in r)
+        if r.get("calls_768x512"):
+            extra += f" calls at 768x512 {r['calls_768x512']}"
         print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}){extra} "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library {r['library_ms']}")
+    totals = [("stream step", k)] + ([("768x512 step", k["per_768x512_step"])]
+                                      if "per_768x512_step" in k else [])
+    for what, t in totals:
+        print(f"{k['name']:22s} per {what}: ms {t['ms']:.4f} plain {t['plain_ms']:.3f} "
+              f"bound {t['bound_ms']:.4f} library {t['library_ms']}")
 
 
 def report_stream(result) -> None:
@@ -989,15 +1017,18 @@ def main() -> int:
     phase("slice at full width: bench.py's main path (512x512, SD-1.5 motion UNet, TAESD, "
           "DPT-hybrid depth, int8 cache)")
     kept = []  # the three 512x512 int8-cache pipelines, streamed in turn after phase 7
-    from live2diff_tpu_torch.ops.flash_attention import tensor_map_encode_stats
+    from live2diff_tpu_torch.ops import conv, flash_attention
 
-    ns0, calls0 = tensor_map_encode_stats()
+    encode_stats = {"flash": (flash_attention.tensor_map_encode_stats, "3 maps each"),
+                    "conv": (conv.tensor_map_encode_stats, "1 map each")}
+    before = {k: fn() for k, (fn, _) in encode_stats.items()}
     result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
                                 EXPECTED_PREPARE, profile=True, keep=kept, kv_cache_dtype="int8")
-    ns1, calls1 = tensor_map_encode_stats()
     report_stream(result)
-    print(f"flash tensor-map encoding on the host: {(ns1 - ns0) / 1e3 / (calls1 - calls0):.3f} us "
-          f"a call over the {calls1 - calls0} flash launches of this phase (3 maps each)")
+    for k, (fn, maps) in encode_stats.items():
+        ns, calls = (a - b for a, b in zip(fn(), before[k]))
+        print(f"{k} tensor-map encoding on the host: {ns / 1e3 / calls:.3f} us a call over "
+              f"the {calls} {k} launches of this phase that encoded maps ({maps})")
     step_launches = result["profile"]["kernels_per_call"]
     print(f"profiled launches a stream step: {step_launches} (at most "
           f"{MAIN_PATH_LAUNCHES_PER_STEP})")

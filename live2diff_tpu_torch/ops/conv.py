@@ -4,7 +4,9 @@ The CUDA kernel (``csrc/conv3x3.cu``, one template for both strides)
 replaces the Pallas TPU kernels ``live2diff_tpu/ops/conv.py:conv3x3_fused``
 and ``conv3x3_s2_fused``: a padding-1 3x3 conv over NHWC activations with
 fp32 accumulation, fused bias, residual skip (added before the ReLU) and
-ReLU. ``conv3x3_plain`` is the same function in plain torch.
+ReLU. It is an implicit GEMM on Hopper's ``wgmma``, its input tiles loaded
+by TMA (when Cin % 8 == 0) into a ring of stages; the source's note says
+how. ``conv3x3_plain`` is the same function in plain torch.
 
 Weights are in torch's ``[Cout, Cin, 3, 3]`` layout, the layout of the
 modules that hold them; activations keep the JAX package's NHWC layout.
@@ -13,6 +15,7 @@ modules that hold them; activations keep the JAX package's NHWC layout.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -44,6 +47,15 @@ def conv3x3_plain(
     if relu:
         out = torch.relu(out)
     return out.to(x.dtype).contiguous()
+
+
+@functools.cache
+def _launcher():
+    """The C entry, built and loaded at first use, its argument types set once."""
+    fn = _build.load("conv3x3").conv3x3
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def conv3x3(
@@ -84,11 +96,7 @@ def conv3x3(
         if tuple(skip.shape) != (b, ho, wo, cout) or skip.data_ptr() % 4:
             raise ValueError(f"conv3x3: skip {tuple(skip.shape)}, out {(b, ho, wo, cout)}")
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    lib = _build.load("conv3x3")
-    fn = lib.conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
+    rc = _launcher()(
         x.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if skip is None else skip.data_ptr(),
@@ -97,3 +105,15 @@ def conv3x3(
     _build.check(rc, name)
     _build.launch_counts[name] += 1
     return out
+
+
+def tensor_map_encode_stats():
+    """(host ns spent encoding TMA tensor maps, launches that encoded them)
+    over both strides since ``csrc/conv3x3.cu`` was loaded: each launch with
+    Cin % 8 == 0 encodes one map on the host."""
+    fn = _build.load("conv3x3").conv3x3_encode_stats
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_longlong
+    calls = ctypes.c_longlong(0)
+    ns = fn(ctypes.byref(calls))
+    return ns, calls.value

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Per-call device time of the port's two bf16 flash entries, on one GPU.
+"""Per-call device time of the port's bf16 flash entries and fused convs, on one GPU.
 
-    python3 scripts/flash_ab.py [--other DIR] [--reps 20] [--json PATH]
+    python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH]
 
 Times ``flash_attention`` (d-major, kernel #3) at every shape of the
-512x512 stream step and of ``prepare`` that ``chip_smoke.py`` checks, and
+512x512 stream step and of ``prepare`` that ``chip_smoke.py`` checks,
 ``flash_self_attention`` (s-major, kernel #4) at its 512x512 and 768x512
-shapes, with CUDA events, the L2 cache overwritten before each call. With
+shapes, and ``conv3x3`` (kernels #6 and #7, stride 1 and 2) at every shape
+of ``chip_smoke.py``'s phase 2 (the 512x512 and 768x512 steps and
+``prepare``), with CUDA events, the L2 cache overwritten before each call. With
 ``--other DIR`` (another checkout of the repository, for example a parent
 commit unpacked with ``git archive``) both trees are timed on the same card
 in turns: this tree, the other, the other, this tree, each in a process of
@@ -35,6 +37,20 @@ DMAJOR = [
 # (B, S, D) of the s-major entry, H = 8, blocks (512, 1024)
 SMAJOR = [(2, 4096, 40), (2, 1024, 80), (2, 6144, 40), (2, 1536, 80), (8, 6144, 40),
           (8, 1536, 80)]
+# (B, H, W, Cin, stride, bias, skip and ReLU) of the fused conv: the encoder
+# (B = 2) and decoder (B = 1) levels of the 512x512 and 768x512 steps,
+# prepare's largest (B = 16 and 8), then the three downsamples of each
+CONV = [
+    *[(2, h, w, 3, 1, True, False) for h, w in ((512, 512), (512, 768))],
+    *[(b, h, w, 64, 1, True, True) for b in (2, 1)
+      for h, w in ((512, 512), (256, 256), (128, 128), (64, 64),
+                   (512, 768), (256, 384), (128, 192), (64, 96))],
+    (16, 512, 512, 3, 1, True, False), (16, 512, 512, 64, 1, True, True),
+    (8, 512, 512, 64, 1, True, True),
+    *[(2, h, w, 64, 2, False, False) for h, w in ((512, 512), (256, 256), (128, 128),
+                                                  (512, 768), (256, 384), (128, 192))],
+    (16, 512, 512, 64, 2, False, False),
+]
 
 
 def child(root: str, reps: int) -> None:
@@ -44,8 +60,11 @@ def child(root: str, reps: int) -> None:
     import torch
 
     from live2diff_tpu_torch.ops import flash_attention as fa
+    from live2diff_tpu_torch.ops.conv import conv3x3
 
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    # overwrites the L2 before each call, and keeps the card busy longer than
+    # the host takes to launch the call (as chip_smoke.py's time_ms)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn):
         fn()
@@ -75,6 +94,17 @@ def child(root: str, reps: int) -> None:
         rows.append(dict(entry="smajor", shape=f"q[{b},8,{s},{d}] blocks (512, 1024)",
                          ms=time_ms(lambda: fa.flash_self_attention(q, k, v, d ** -0.5, 512,
                                                                      1024))))
+    for b, h, w, cin, stride, bias, fused in CONV:
+        x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(torch.bfloat16)
+        wt = (torch.randn(64, cin, 3, 3, generator=gen, device="cuda") / (9 * cin) ** 0.5
+              ).to(torch.bfloat16)
+        bs = torch.randn(64, generator=gen, device="cuda").to(torch.bfloat16) if bias else None
+        sk = (torch.randn(b, h // stride, w // stride, 64, generator=gen, device="cuda")
+              .to(torch.bfloat16) if fused else None)
+        rows.append(dict(entry=f"conv s{stride}",
+                         shape=f"x[{b},{h},{w},{cin}]" + (" +skip+relu" if fused else ""),
+                         ms=time_ms(lambda: conv3x3(x, wt, bs, sk, fused, stride))))
+        del x, sk
     print(json.dumps(dict(port=os.path.dirname(fa.__file__), rows=rows)))
 
 

@@ -10,7 +10,10 @@ cache dtypes of stream attention, the s-major and int8-QK flash entries on
 strided ``[B, H, S, D]`` views at lengths that are not multiples of their
 tiles (the bf16 flash entries: 128 query rows, 128 keys or 64 at D > 128),
 the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
-counts with each activation, and the wrappers' refusals. Run them on the card, from the repository root:
+counts with each activation, the conv at the edges of its 4 x 16 output
+tiles, on both input paths, with a skip aligned to 4 bytes only and over
+repeated launches on inputs evicted from the L2, and the wrappers'
+refusals. Run them on the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
@@ -173,6 +176,31 @@ def test_quantize_kv_matches_cpu(dev, c, hw):
     (1, 16, 24, 40, 1, True, False, True),    # Cin padded to 48
     (1, 38, 46, 64, 2, False, False, False),  # encoder downsample, ragged
     (2, 64, 96, 8, 2, True, True, True),
+    # widths that are no multiple of the 16-pixel tile row (nor of 32)
+    (1, 9, 45, 64, 1, True, True, True),
+    (1, 7, 70, 64, 1, True, False, False),
+    (2, 5, 97, 64, 1, False, True, True),
+    (1, 6, 130, 16, 1, True, True, True),
+    # 1, 2 and 3 rows: a 4-row tile mostly past the image
+    (1, 1, 40, 64, 1, True, True, True),
+    (2, 2, 33, 64, 1, True, False, True),
+    (1, 3, 50, 8, 1, False, True, False),
+    # Cin on the TMA path (Cin % 8 == 0) and on the staged path
+    (1, 12, 36, 8, 1, True, True, True),
+    (1, 12, 36, 16, 1, True, True, True),
+    (1, 12, 36, 40, 1, True, True, True),
+    (1, 12, 36, 64, 1, True, True, True),
+    (2, 10, 20, 3, 1, True, True, True),
+    (1, 10, 20, 5, 1, False, False, True),
+    (1, 10, 20, 12, 1, True, True, False),
+    # stride 2 with an odd output width, on both paths
+    (2, 6, 38, 64, 2, True, True, True),
+    (1, 10, 102, 64, 2, False, False, False),
+    (1, 8, 102, 3, 2, True, False, True),
+    (16, 64, 64, 64, 1, True, True, True),    # B = 16
+    # 768x512's 64x96 and 128x192 levels
+    (2, 64, 96, 64, 1, True, True, True),
+    (1, 128, 192, 64, 1, True, True, True),
 ])
 def test_conv3x3_matches_plain(dev, b, h, w, cin, stride, bias, skip, relu):
     gen = torch.Generator(device=dev).manual_seed(h * 100 + cin)
@@ -180,6 +208,11 @@ def test_conv3x3_matches_plain(dev, b, h, w, cin, stride, bias, skip, relu):
     wt = (_randn(gen, dev, 64, cin, 3, 3) / (9 * cin) ** 0.5).to(torch.bfloat16)
     bs = _randn(gen, dev, 64).to(torch.bfloat16) if bias else None
     sk = _randn(gen, dev, b, h // stride, w // stride, 64).to(torch.bfloat16) if skip else None
+    _check_conv(x, wt, bs, sk, relu, stride)
+
+
+def _check_conv(x, wt, bs, sk, relu, stride):
+    b, h, w, _ = x.shape
     name = "conv3x3" if stride == 1 else "conv3x3_s2"
     before = _build.launch_counts[name]
     out = conv3x3(x, wt, bs, sk, relu, stride)
@@ -188,6 +221,59 @@ def test_conv3x3_matches_plain(dev, b, h, w, cin, stride, bias, skip, relu):
     ref = conv3x3_plain(x, wt, bs, sk, relu, stride)
     assert out.shape == ref.shape == (b, h // stride, w // stride, 64)
     assert _rel(out, ref) < CONV_TOL
+    return out
+
+
+def test_conv3x3_takes_a_4_byte_aligned_skip(dev):
+    """A skip whose data starts 2 bf16 (4 bytes) into its storage: no
+    16-byte alignment, which the wrapper does not ask of a skip."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(gen, dev, 2, 20, 36, 64).to(torch.bfloat16)
+    wt = (_randn(gen, dev, 64, 64, 3, 3) / 24).to(torch.bfloat16)
+    bs = _randn(gen, dev, 64).to(torch.bfloat16)
+    base = _randn(gen, dev, 2 * 20 * 36 * 64 + 2).to(torch.bfloat16)
+    sk = base[2:].view(2, 20, 36, 64)
+    assert sk.data_ptr() % 16 == 4
+    _check_conv(x, wt, bs, sk, True, 1)
+
+
+@pytest.mark.parametrize("cin,stride", [(64, 2), (64, 1), (3, 2)])
+def test_conv3x3_repeated_cold_launches_agree(dev, cin, stride):
+    """200 launches, each on inputs evicted from the L2, bit-equal: copies
+    that land out of order must not let a consumer or producer wait pass
+    an mbarrier phase early (a 3-stage ring did at stride 2). At 512^2 a
+    CTA takes 15 or more jobs, so each stage comes round several times."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _randn(gen, dev, 2, 512, 512, cin).to(torch.bfloat16)
+    wt = (_randn(gen, dev, 64, cin, 3, 3) / (9 * cin) ** 0.5).to(torch.bfloat16)
+    bs = _randn(gen, dev, 64).to(torch.bfloat16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    first = conv3x3(x, wt, bs, stride=stride)
+    differ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(200):
+        flush.fill_(1)
+        differ += (conv3x3(x, wt, bs, stride=stride) != first).any()
+    assert differ.item() == 0
+    assert _rel(first, conv3x3_plain(x, wt, bs, stride=stride)) < CONV_TOL
+
+
+def test_conv3x3_calls_leave_no_state(dev):
+    """The same module weights twice, with other shapes and Cin between:
+    bit-equal outputs."""
+    from live2diff_tpu_torch.models.vae import FusedConv3x3
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    conv = FusedConv3x3(64, 64, relu=True).to(dev, torch.bfloat16)
+    x = _randn(gen, dev, 2, 40, 48, 64).to(torch.bfloat16)
+    sk = _randn(gen, dev, 2, 40, 48, 64).to(torch.bfloat16)
+    with torch.no_grad():
+        first = conv(x, sk)
+        conv3x3(_randn(gen, dev, 1, 16, 16, 3).to(torch.bfloat16),
+                _randn(gen, dev, 64, 3, 3, 3).to(torch.bfloat16))
+        conv3x3(_randn(gen, dev, 2, 32, 32, 64).to(torch.bfloat16), conv.weight, stride=2)
+        second = conv(x, sk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("s,hw,c,heads", [

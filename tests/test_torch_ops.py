@@ -242,7 +242,7 @@ def test_conv3x3_matches_jax(stride, cin, skip, relu):
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_conv3x3_plain_matches_pallas_interpret(stride):
-    """Kernels #3 and #4's plain version == the Pallas fused convs."""
+    """Kernels #6 and #7's plain version == the Pallas fused convs."""
     rs = np.random.RandomState(7)
     x = rs.randn(1, 16, 128, 64).astype(np.float32)
     w = (0.1 * rs.randn(3, 3, 64, 64)).astype(np.float32)
