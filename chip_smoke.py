@@ -13,10 +13,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    ``prepare`` give it, with its time, the plain version's time, one
    library call's time as a yardstick (never used by the port), and its
    roofline bound (for the flash kernels the larger of the bytes, the
-   tensor-core operations and the exponentials at 16 a clock per SM). The
-   GroupNorm kernel is checked after phase 7, at the shapes that phase
-   recorded. Then the int8 KV cache's quantisation on the card against the
-   CPU, bit for bit.
+   tensor-core operations and the exponentials at 16 a clock per SM); the
+   stream-attention rows also print their route and their share of the
+   bound. The GroupNorm kernel is checked after phase 7, and the LayerNorm
+   kernel again after phase 10, at the shapes those phases recorded. Then the int8 KV cache's quantisation on the card against
+   the CPU, bit for bit.
 3. small input: a narrow pipeline (64x64 frames, a narrow 384x384 DPT) on
    the card, bf16 with the kernels, against the same weights and noise in
    fp32 on the CPU.
@@ -24,9 +25,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    motion UNet, 2 LCM steps, TAESD, DPT-hybrid depth, int8 KV cache, uint8
    frames), random weights from seed 0: ``prepare`` on 8 warmup frames,
    then streamed frames, timed and profiled; every kernel's launches in
-   ``prepare`` and per stream step are asserted, and the profiled launches
-   a step may not exceed 7,265. Prints the host time the flash kernels and
-   the conv spend encoding TMA tensor maps, per call.
+   ``prepare`` and per stream step are asserted (stream attention's by
+   route too: on a 132-SM card 40 on TMA, 30 of them in clusters), and the
+   profiled launches a step may not exceed 7,265. Prints the host time the
+   flash kernels, the conv and stream attention spend encoding TMA tensor
+   maps, per call.
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
    the bf16 stream-attention kernel's launches asserted.
@@ -40,9 +43,16 @@ Phases, each printed as it ends; any failure exits non-zero:
    step), then the kernel is checked at each shape it saw. The pipelines
    of phases 4, 6 and 7 then stream 30 more frames each in turn, so that
    their frame times can be compared under the same host conditions.
-8. 768x512: bench.py's second row (``--width 768 --height 512``) with
-   ``flash_variant="smajor"``: 24 frames; the s-major flash kernel takes the
-   10 gated self-attentions a step, at S = 6144 and 1536.
+8. 768x512: bench.py's second row (``--width 768 --height 512``, d-major
+   flash, as bench.py runs it): 24 frames, profiled.
+9. s-major A/B: phase 8 with ``flash_variant="smajor"``: 8 frames,
+   profiled; the s-major flash kernel takes the 10 gated self-attentions a
+   step, at S = 6144 and 1536.
+10. LayerNorm kernel at every site (``ln_kernel_sites="all"``, the UNet's
+   C = 320-1280 LayerNorms with it): ``prepare`` and 4 frames at 512x512;
+   every LayerNorm whose input meets the JAX conditions launches the kernel
+   once (counted by hooks, which log its shapes); then the kernel is
+   checked against its plain version at each of those shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -58,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter, defaultdict
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 # dense tensor-core bf16 and int8; fp32 outside tensor cores
@@ -69,6 +80,8 @@ SFU_RATE = []  # [exp / s], set once the card is known
 # kernel launches a main-path stream step in the profile, measured before
 # the int8 KV cache divided by a tensor: that division must not add any
 MAIN_PATH_LAUNCHES_PER_STEP = 7265
+# stream-attention launches a main-path step by route (132 SMs)
+MAIN_PATH_ROUTES = {"tma": 40, "scalar": 0, "cluster": 30}
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
 TF32_OFF = "torch.backends.cudnn.allow_tf32 = False; torch.backends.cuda.matmul.allow_tf32 = False"
@@ -94,6 +107,8 @@ BF16_FRAMES = 8
 INT8_QK_FRAMES = 32
 GN_FRAMES = 16
 WIDE_FRAMES = 24
+SMAJOR_FRAMES = 8
+LN_FRAMES = 4
 INTERLEAVED_ROUNDS = 30
 # the three opt-in kernels: none of them on bench.py's main path
 OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0, "group_norm": 0}
@@ -190,13 +205,19 @@ def rel_rms(out, ref) -> float:
 
 def check_stream_attention(torch, gen, dev, cache: str):
     from live2diff_tpu_torch.ops.stream_attention import (
-        stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
+        plan, stream_window_attention_bf16, stream_window_attention_int8,
+        stream_window_attention_plain,
     )
 
     s, heads, window = 2, 8, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    # (C, HW) of the 4 UNet levels at 512x512; 10 calls each per stream step
-    for c, hw in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
+    # (C, HW, calls per 512x512 step, calls per 768x512 step): the 4 UNet
+    # levels of each row, 10 calls each per stream step
+    for c, hw, calls, calls_wide in (
+        (320, 4096, 10, 0), (640, 1024, 10, 0), (1280, 256, 10, 0), (1280, 64, 10, 0),
+        (320, 6144, 0, 10), (640, 1536, 0, 10), (1280, 384, 0, 10), (1280, 96, 0, 10),
+    ):
         q = torch.randn(s, hw, c, generator=gen, device=dev).to(torch.bfloat16)
         extra = torch.randn(s, window, heads, hw, generator=gen, device=dev)
         extra[:, 9:] = float("-inf")  # an early-stream mask: slots 9..15 not visible
@@ -225,13 +246,16 @@ def check_stream_attention(torch, gen, dev, cache: str):
         nbytes = 2 * q.numel() + cache_bytes + 4 * extra.numel() + 4 * pe_v.numel() + 2 * q.numel()
         flops = 6 * window * s * c * hw  # q.k, v (dequant) + pe, p.v
         b_ms, b_by = bound(nbytes, (flops, "fp32"))
+        staging, cluster = plan(s, hw, c, heads, data.element_size(), sms)
+        ms = time_ms(lambda: kernel(*args), 50)
         rows.append(dict(
-            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}", calls=10,
-            prepare_calls=0, max_abs_err=err, rel_err=rel, tol=2e-2,
-            ms=time_ms(lambda: kernel(*args), 50),
+            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}", calls=calls,
+            calls_768x512=calls_wide, prepare_calls=0, max_abs_err=err, rel_err=rel, tol=2e-2,
+            route=f"{staging}, cluster {cluster}", ms=ms,
             plain_ms=time_ms(lambda: stream_window_attention_plain(*plain_args), 3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
         ))
+        del data, out, ref
     return rows
 
 
@@ -248,12 +272,21 @@ def check_flash(torch, gen, dev):
     # the 8 warmup frames (B = 8), the bidirectional motion attention over
     # those 8 frames with the positions folded into the batch (B = HW,
     # S = 8), and the ViT over the 8 warmup frames.
-    for b, sq, sk, h, d, calls, prep in (
-        (2, 4096, 4096, 8, 40, 5, 0), (2, 1024, 1024, 8, 80, 5, 0), (2, 256, 256, 8, 160, 5, 0),
-        (2, 64, 64, 8, 160, 1, 0), (2, 4096, 77, 8, 40, 5, 0), (2, 1024, 77, 8, 80, 5, 0),
-        (2, 256, 77, 8, 160, 5, 0), (2, 64, 77, 8, 160, 1, 0), (1, 577, 577, 12, 64, 12, 0),
-        (8, 4096, 4096, 8, 40, 0, 10), (4096, 8, 8, 8, 40, 0, 20), (1024, 8, 8, 8, 80, 0, 20),
-        (256, 8, 8, 8, 160, 0, 20), (64, 8, 8, 8, 160, 0, 20), (8, 577, 577, 12, 64, 0, 12),
+    # calls per 768x512 step: the same at that row's levels (S = 6144, 1536,
+    # 384, 96) and the ViT, whose input is 384x384 at either size
+    for b, sq, sk, h, d, calls, calls_wide, prep in (
+        (2, 4096, 4096, 8, 40, 5, 0, 0), (2, 1024, 1024, 8, 80, 5, 0, 0),
+        (2, 256, 256, 8, 160, 5, 0, 0), (2, 64, 64, 8, 160, 1, 0, 0),
+        (2, 4096, 77, 8, 40, 5, 0, 0), (2, 1024, 77, 8, 80, 5, 0, 0),
+        (2, 256, 77, 8, 160, 5, 0, 0), (2, 64, 77, 8, 160, 1, 0, 0),
+        (1, 577, 577, 12, 64, 12, 12, 0),
+        (2, 6144, 6144, 8, 40, 0, 5, 0), (2, 1536, 1536, 8, 80, 0, 5, 0),
+        (2, 384, 384, 8, 160, 0, 5, 0), (2, 96, 96, 8, 160, 0, 1, 0),
+        (2, 6144, 77, 8, 40, 0, 5, 0), (2, 1536, 77, 8, 80, 0, 5, 0),
+        (2, 384, 77, 8, 160, 0, 5, 0), (2, 96, 77, 8, 160, 0, 1, 0),
+        (8, 4096, 4096, 8, 40, 0, 0, 10), (4096, 8, 8, 8, 40, 0, 0, 20),
+        (1024, 8, 8, 8, 80, 0, 0, 20), (256, 8, 8, 8, 160, 0, 0, 20), (64, 8, 8, 8, 160, 0, 0, 20),
+        (8, 577, 577, 12, 64, 0, 0, 12),
     ):
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, sk, h, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -270,7 +303,8 @@ def check_flash(torch, gen, dev):
         b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                            (4 * b * h * sq * sk * d, "bf16"), exps=b * h * sq * sk)
         rows.append(dict(
-            shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls, prepare_calls=prep,
+            shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls,
+            calls_768x512=calls_wide, prepare_calls=prep,
             max_abs_err=err, rel_err=rel, tol=2e-2,
             ms=time_ms(lambda: flash_attention(q, k, v, scale), 20),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, scale), 2),
@@ -345,36 +379,56 @@ def check_conv(torch, gen, dev, stride: int):
     return rows
 
 
-def check_layer_norm(torch, gen, dev):
+def layer_norm_row(torch, gen, dev, n, c, eps, label="", **calls):
+    """The LayerNorm kernel's wrapper against its plain version at x [n, C]
+    bf16; ``calls``: the row's call counts."""
     import torch.nn.functional as F
 
-    from live2diff_tpu_torch.ops.norm import layer_norm, layer_norm_plain
+    from live2diff_tpu_torch.ops.norm import layer_norm_plain, layer_norm_rows
 
-    c, eps = 768, 1e-6
-    rows = []
-    # (rows, calls per stream step, calls in prepare): the ViT's 2 LayerNorms
-    # in each of its 12 blocks over 577 tokens per frame (1 frame a step,
-    # the 8 warmup frames in prepare), and one ragged shape
-    for n, calls, prep in ((577, 24, 0), (577 * 8, 0, 24), (1001, 0, 0)):
-        x = (torch.randn(n, c, generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
-        g = (1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
-        b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
-        out = layer_norm(x, g, b, eps, site="vit")
-        torch.cuda.synchronize()
-        ref = layer_norm_plain(x, g, b, eps)
-        torch.cuda.synchronize()
-        # same fp32 statistics in another order; one bf16 rounding of the output
-        err, rel = compare(out, ref, 1e-2)
-        b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), (8 * x.numel(), "fp32"))
-        rows.append(dict(
-            shape=f"x[{n},{c}] bf16", calls=calls, prepare_calls=prep,
-            max_abs_err=err, rel_err=rel, tol=1e-2,
-            ms=time_ms(lambda: layer_norm(x, g, b, eps, site="vit"), 100),
-            plain_ms=time_ms(lambda: layer_norm_plain(x, g, b, eps), 20),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.layer_norm(x, (c,), g, b, eps), 100),
-        ))
-    return rows
+    x = (torch.randn(n, c, generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+    g = (1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+    out = layer_norm_rows(x, g, b, eps)
+    torch.cuda.synchronize()
+    ref = layer_norm_plain(x, g, b, eps)
+    torch.cuda.synchronize()
+    # same fp32 statistics in another order; one bf16 rounding of the output
+    err, rel = compare(out, ref, 1e-2)
+    b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), (8 * x.numel(), "fp32"))
+    return dict(
+        shape=f"x[{n},{c}] bf16 eps {eps:g}{label}", **calls,
+        max_abs_err=err, rel_err=rel, tol=1e-2,
+        ms=time_ms(lambda: layer_norm_rows(x, g, b, eps), 100),
+        plain_ms=time_ms(lambda: layer_norm_plain(x, g, b, eps), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.layer_norm(x, (c,), g, b, eps), 100),
+    )
+
+
+def check_layer_norm(torch, gen, dev):
+    """The main path's LayerNorms: (rows, calls per stream step, calls in
+    prepare) of the ViT's 2 LayerNorms in each of its 12 blocks over 577
+    tokens per frame (1 frame a step, the 8 warmup frames in prepare), and
+    one ragged shape."""
+    return [layer_norm_row(torch, gen, dev, n, 768, 1e-6, calls=calls, prepare_calls=prep)
+            for n, calls, prep in ((577, 24, 0), (577 * 8, 0, 24), (1001, 0, 0))]
+
+
+def check_layer_norm_sites(torch, gen, dev, step_shapes, prepare_shapes):
+    """The LayerNorm kernel at every (rows, C, eps) that phase 10's stream
+    step and prepare (``ln_kernel_sites="all"``) gave it, with its calls
+    there (``calls_ln_all``, ``prepare_calls_ln_all``; none on the main
+    path). The logs are keyed by (site, rows, C, eps)."""
+    step, prep, sites = Counter(), Counter(), defaultdict(set)
+    for log, into in ((step_shapes, step), (prepare_shapes, prep)):
+        for (site, n, c, eps), k in log.items():
+            into[n, c, eps] += k
+            sites[n, c, eps].add(site)
+    return [layer_norm_row(torch, gen, dev, n, c, eps, f" ({', '.join(sorted(sites[n, c, eps]))})",
+                           calls=0, prepare_calls=0, calls_ln_all=step[n, c, eps],
+                           prepare_calls_ln_all=prep[n, c, eps])
+            for n, c, eps in sorted(sites)]
 
 
 # The [B, H, S, D] flash entries round p to bf16 from the same fp32 logits
@@ -526,6 +580,12 @@ def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
     return rows
 
 
+# per-step totals besides the main path's: {total's key: (the rows' calls
+# key, the step's name)}
+OTHER_STEPS = {"per_768x512_step": ("calls_768x512", "768x512 step"),
+               "per_ln_all_step": ("calls_ln_all", "phase 10 step")}
+
+
 def summarise(name, source, replaces, rows):
     """One kernels-line entry: per-step totals (sum over shapes of calls x
     per-call time) and the per-shape rows."""
@@ -535,11 +595,11 @@ def summarise(name, source, replaces, rows):
 
     by_bytes = sum(r["calls"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     by_ops = sum(r["calls"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
-    wide = {}
-    if any("calls_768x512" in r for r in rows):  # the same totals over a 768x512 step
-        wide = {"per_768x512_step": {
-            key: sum(r.get("calls_768x512", 0) * r[key] for r in rows)
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    wide = {  # the same totals over a 768x512 step, or a step of phase 10
+        total: {key: None if any(r[key] is None for r in rows)
+                else sum(r.get(calls, 0) * r[key] for r in rows)
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        for total, (calls, _) in OTHER_STEPS.items() if any(calls in r for r in rows)}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=None,
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -685,18 +745,42 @@ def group_norm_recorder(torch, modules):
     return log, lambda: [h.remove() for h in handles]
 
 
+def layer_norm_recorder(torch, modules):
+    """Forward pre-hooks on every FusedLayerNorm of ``modules`` that log
+    (site, rows, C, eps) of each call meeting the JAX package's kernel
+    conditions at a site the module's choices name
+    (``live2diff_tpu/ops/norm.py:239-246``: C % 8 == 0, at least 2^14
+    elements). Returns (log, remove)."""
+    from live2diff_tpu_torch.models.layers import FusedLayerNorm
+    from live2diff_tpu_torch.ops.norm import LN_MIN_ELEMS
+
+    log = []
+
+    def hook(mod, args):
+        x = args[0]
+        if (mod.kernels.ln_kernel_at(mod.site) and x.shape[-1] % 8 == 0
+                and x.numel() >= LN_MIN_ELEMS):
+            c = x.shape[-1]
+            log.append((mod.site, x.numel() // c, c, mod.eps))
+
+    handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
+               if isinstance(m, FusedLayerNorm)]
+    return log, lambda: [h.remove() for h in handles]
+
+
 def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile,
-               height=512, width=512, record_gn=False, keep=None, **build_kw):
+               height=512, width=512, record_gn=False, record_ln=False, keep=None,
+               **build_kw):
     """build_pipeline at full width, prepare, then ``n_frames`` frames, each
     timed on the host clock to a synchronize; launch counts are zeroed just
     before prepare and before the frames, and asserted just after each.
-    With ``record_gn`` the GroupNorm calls that meet the kernel conditions
-    are logged over prepare and the (untimed) warm step, and ``group_norm``
-    is expected to launch once for each of them. ``keep``, a list, gets the
-    stream, its state and the frames, for ``interleaved``."""
-    from collections import Counter
-
+    With ``record_gn`` (``record_ln``) the GroupNorm (LayerNorm) calls that
+    meet the kernel conditions are logged over prepare and the (untimed)
+    warm step, and ``group_norm`` (``layer_norm``) is expected to launch
+    once for each of them. ``keep``, a list, gets the stream, its state and
+    the frames, for ``interleaved``."""
     from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.ops import stream_attention
 
     dev = torch.device("cuda")
     gc.collect()  # an earlier phase's pipeline, freed before this one is built
@@ -712,9 +796,12 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     n_params = {"unet": sum(p.numel() for p in built.unet.parameters())}
     if built.depth_model is not None:
         n_params["depth"] = sum(p.numel() for p in built.depth_model.parameters())
+    recorders = {}  # kernel name -> (log, remove) of its hooks
+    models = [m for m in (built.unet, built.depth_model) if m is not None]
     if record_gn:
-        gn_log, remove_hooks = group_norm_recorder(
-            torch, [m for m in (built.unet, built.depth_model) if m is not None])
+        recorders["group_norm"] = group_norm_recorder(torch, models)
+    if record_ln:
+        recorders["layer_norm"] = layer_norm_recorder(torch, models)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
@@ -736,10 +823,11 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     finite = [torch.isfinite(c[1] if int8 else c).all() for c in state.kv_caches]
     if not all(finite):
         raise AssertionError("prepare() left non-finite KV caches (or int8 scales)")
-    if record_gn:
-        gn_prepare = Counter(gn_log)
-        gn_log.clear()
-        expected_prepare = {**expected_prepare, "group_norm": sum(gn_prepare.values())}
+    logged_prepare = {}
+    for name, (log, _) in recorders.items():
+        logged_prepare[name] = Counter(log)
+        log.clear()
+        expected_prepare = {**expected_prepare, name: sum(logged_prepare[name].values())}
     check_counts("prepare", warm_counts, expected_prepare, 1)
     peak_prepare = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -747,12 +835,14 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     first_step_s = stream.warm_frame_step(torch.uint8)
     peak_warm_step = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    if record_gn:
-        gn_step = Counter(gn_log)
+    logged_step = {}
+    for name, (log, remove_hooks) in recorders.items():
+        logged_step[name] = Counter(log)
         remove_hooks()
-        expected_step = {**expected_step, "group_norm": sum(gn_step.values())}
+        expected_step = {**expected_step, name: sum(logged_step[name].values())}
 
     _build.reset_launch_counts()
+    routes_before = dict(stream_attention.route_counts)
     times, outs = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
@@ -764,6 +854,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         if not torch.isfinite(state.x_t_buffer).all():
             raise AssertionError(f"frame {i}: non-finite latents")
     counts = dict(_build.launch_counts)
+    routes = {k: v - routes_before[k] for k, v in stream_attention.route_counts.items()}
     peak_stream = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (height, width, 3) or out.dtype != torch.uint8:
@@ -793,9 +884,12 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         launches_prepare=warm_counts,
         launches_stream=counts,
         launches_per_step={k: v / n_frames for k, v in counts.items()},
+        stream_attention_routes_per_step={k: v / n_frames for k, v in routes.items()},
     )
     if record_gn:
-        result["group_norm_shapes"] = (gn_step, gn_prepare)
+        result["group_norm_shapes"] = (logged_step["group_norm"], logged_prepare["group_norm"])
+    if record_ln:
+        result["layer_norm_sites"] = (logged_step["layer_norm"], logged_prepare["layer_norm"])
     if built.depth_model is not None:
         result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
     if keep is not None:
@@ -910,11 +1004,16 @@ def print_rows(k) -> None:
             "rms_err", "unquantised_rel_err", "unquantised_rms_err") if key in r)
         if r.get("calls_768x512"):
             extra += f" calls at 768x512 {r['calls_768x512']}"
+        if "calls_ln_all" in r:
+            extra += (f" calls in phase 10 {r['calls_ln_all']} a step, "
+                      f"{r['prepare_calls_ln_all']} in prepare")
+        if "route" in r:
+            extra += f" route ({r['route']}) share of bound {r['bound_share']:.3f}"
         print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}){extra} "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library {r['library_ms']}")
-    totals = [("stream step", k)] + ([("768x512 step", k["per_768x512_step"])]
-                                      if "per_768x512_step" in k else [])
+    totals = [("stream step", k)] + [(what, k[total]) for total, (_, what) in OTHER_STEPS.items()
+                                     if total in k]
     for what, t in totals:
         print(f"{k['name']:22s} per {what}: ms {t['ms']:.4f} plain {t['plain_ms']:.3f} "
               f"bound {t['bound_ms']:.4f} library {t['library_ms']}")
@@ -1017,10 +1116,12 @@ def main() -> int:
     phase("slice at full width: bench.py's main path (512x512, SD-1.5 motion UNet, TAESD, "
           "DPT-hybrid depth, int8 cache)")
     kept = []  # the three 512x512 int8-cache pipelines, streamed in turn after phase 7
-    from live2diff_tpu_torch.ops import conv, flash_attention
+    from live2diff_tpu_torch.ops import conv, flash_attention, stream_attention
 
     encode_stats = {"flash": (flash_attention.tensor_map_encode_stats, "3 maps each"),
-                    "conv": (conv.tensor_map_encode_stats, "1 map each")}
+                    "conv": (conv.tensor_map_encode_stats, "1 map each"),
+                    "stream attention": (stream_attention.tensor_map_encode_stats,
+                                         "1 map each")}
     before = {k: fn() for k, (fn, _) in encode_stats.items()}
     result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
                                 EXPECTED_PREPARE, profile=True, keep=kept, kv_cache_dtype="int8")
@@ -1029,6 +1130,17 @@ def main() -> int:
         ns, calls = (a - b for a, b in zip(fn(), before[k]))
         print(f"{k} tensor-map encoding on the host: {ns / 1e3 / calls:.3f} us a call over "
               f"the {calls} {k} launches of this phase that encoded maps ({maps})")
+    # the main path's stream-attention launches by route, on a 132-SM H100:
+    # every level on TMA; HW = 1024, 256 and 64 (128, 32 and 16 CTAs
+    # without a cluster) in clusters of 2, 5 and 7, 10 calls a step each
+    routes = result["stream_attention_routes_per_step"]
+    print(f"stream attention routes a step: {json.dumps(routes)}")
+    expected_routes = dict(MAIN_PATH_ROUTES)
+    if sms != 132:  # another card: its cluster count is not pinned
+        expected_routes["cluster"] = routes["cluster"]
+    if routes != expected_routes:
+        raise AssertionError(f"main path: stream attention routes {routes}, expected "
+                             f"{expected_routes}")
     step_launches = result["profile"]["kernels_per_call"]
     print(f"profiled launches a stream step: {step_launches} (at most "
           f"{MAIN_PATH_LAUNCHES_PER_STEP})")
@@ -1075,20 +1187,51 @@ def main() -> int:
     print_rows(gn_entry)
     kernels.append(gn_entry)
 
-    phase("768x512 at full width (bench.py's second row) with flash_variant='smajor'")
-    result, counts_wide = run_stream(
-        torch, _build, WIDE_FRAMES,
+    phase("768x512 at full width: bench.py's second row (d-major flash, as bench.py runs it)")
+    result, _ = run_stream(torch, _build, WIDE_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
+                           profile=True, height=512, width=768, kv_cache_dtype="int8")
+    report_stream(result)
+    wide = headline(result)
+    del result
+
+    phase("768x512 s-major A/B: phase 8 with flash_variant='smajor'")
+    result, counts_smajor = run_stream(
+        torch, _build, SMAJOR_FRAMES,
         with_variant(EXPECTED_PER_STEP, "flash_attention_smajor", GATED_PER_STEP),
         with_variant(EXPECTED_PREPARE, "flash_attention_smajor", GATED_PREPARE),
         profile=True, height=512, width=768, kv_cache_dtype="int8", flash_variant="smajor")
     report_stream(result)
+    print(f"beside phase 8: {json.dumps({'d-major': wide, 's-major': headline(result)})}")
     del result
+
+    phase("LayerNorm kernel at every site (ln_kernel_sites='all')")
+    result, counts_ln = run_stream(torch, _build, LN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
+                                   profile=False, record_ln=True, kv_cache_dtype="int8",
+                                   ln_kernel_sites="all")
+    ln_step, ln_prepare = result.pop("layer_norm_sites")
+    by_site = Counter()
+    for (site, _, c, _), k in ln_step.items():
+        by_site[site, c] += k
+    print(f"layer_norm launches: {counts_ln['layer_norm'] / LN_FRAMES} a step (one per "
+          f"LayerNorm call meeting the kernel conditions; by (site, C): "
+          f"{json.dumps({f'{k[0]} {k[1]}': v for k, v in sorted(by_site.items())})}), "
+          f"{sum(ln_prepare.values())} in prepare")
+    if not by_site[("spatial", 1280)] or not by_site[("temporal", 1280)]:
+        raise AssertionError(f"ln_kernel_sites='all': no kernel LayerNorm at C = 1280: {ln_step}")
+    print(json.dumps({k: v for k, v in result.items() if k != "frame_ms_all"}))
+    del result
+    # the kernel against its plain version at every shape phase 10 gave it
+    ln_index = next(i for i, k in enumerate(kernels) if k["name"] == "layer_norm")
+    kernels[ln_index] = summarise(
+        "layer_norm", src + "layer_norm.cu", "live2diff_tpu/ops/norm.py:224",
+        kernels[ln_index]["shapes"] + check_layer_norm_sites(torch, gen, dev, ln_step, ln_prepare))
+    print_rows(kernels[ln_index])
 
     # each kernel's launches come from the phase that runs it
     source_run = {"stream_attention_bf16": (counts_bf16, BF16_FRAMES, 5),
                   "flash_attention_int8": (counts_int8, INT8_QK_FRAMES, 6),
                   "group_norm": (counts_gn, GN_FRAMES, 7),
-                  "flash_attention_smajor": (counts_wide, WIDE_FRAMES, 8)}
+                  "flash_attention_smajor": (counts_smajor, SMAJOR_FRAMES, 9)}
     for k in kernels:
         run_counts, frames, ph = source_run.get(k["name"], (counts, STREAM_FRAMES, 4))
         k["launches"] = run_counts[k["name"]]

@@ -6,8 +6,10 @@ the defaults are the JAX package's:
 
 * ``layer_norm`` launches the CUDA kernel (``csrc/layer_norm.cu``, replacing
   the Pallas ``_layer_norm_kernel``) at the LayerNorm kernel sites, by
-  default ``vit``, the DPT's ViT tower (``_LN_TAGS = "vit"``, ``norm.py:56``).
-  The UNet's ``spatial`` and ``temporal`` sites run the plain version.
+  default ``vit``, the DPT's ViT tower (``_LN_TAGS = "vit"``, ``norm.py:56``),
+  where the JAX package's shape conditions hold (``norm.py:239-246``: ``C %
+  8 == 0`` and at least ``2^14`` elements). The UNet's ``spatial`` and
+  ``temporal`` sites run the plain version unless chosen.
 * ``group_norm_act`` launches the CUDA kernel (``csrc/group_norm.cu``,
   replacing the Pallas ``_group_norm_kernel``) at the GroupNorm kernel sites
   when the JAX package's conditions hold (``norm.py:140-147``: ``T*C <=
@@ -35,6 +37,11 @@ GN_MAX_ELEMS = 3 * 1024 * 1024
 # channels of an up block's concatenated skip
 GN_MAX_CHANNELS = 3072
 GN_MAX_GROUPS = 256
+# the JAX package's least LayerNorm input it sends to its kernel
+LN_MIN_ELEMS = 1 << 14
+# the CUDA LayerNorm kernel's widest row: one block a row, 8 warps, five
+# 16-byte vectors a lane
+LN_MAX_CHANNELS = 10240
 # blocks the GroupNorm kernel aims for: two per SM of an H100
 _GN_TARGET_BLOCKS = 264
 
@@ -164,8 +171,9 @@ def layer_norm_rows(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Row LayerNorm: launches the CUDA kernel on CUDA tensors (bf16,
-    contiguous, 16-byte aligned, C % 8 == 0, C <= 1024); a CPU tensor runs
-    the plain version."""
+    contiguous, 16-byte aligned, C % 8 == 0, C <= 10240: one warp a row up
+    to C = 1280, one block a row above); a CPU tensor runs the plain
+    version."""
     if not x.is_cuda:
         return layer_norm_plain(x, gamma, beta, eps)
     _build.require(x, "x", torch.bfloat16, 2)
@@ -173,12 +181,12 @@ def layer_norm_rows(
     _build.require(beta, "beta", torch.bfloat16, 1)
     rows, c = x.shape
     if (
-        c % 8 or c > 1024 or gamma.shape[0] != c or beta.shape[0] != c
+        c % 8 or c > LN_MAX_CHANNELS or gamma.shape[0] != c or beta.shape[0] != c
         or any(t.data_ptr() % 16 for t in (x, gamma, beta))
     ):
         raise ValueError(
             f"layer_norm: unsupported x {tuple(x.shape)}, gamma {tuple(gamma.shape)}, "
-            f"beta {tuple(beta.shape)} (C % 8 == 0, C <= 1024, 16-byte aligned)"
+            f"beta {tuple(beta.shape)} (C % 8 == 0, C <= {LN_MAX_CHANNELS}, 16-byte aligned)"
         )
     out = torch.empty_like(x)
     fn = _build.load("layer_norm").layer_norm
@@ -200,8 +208,10 @@ def layer_norm(
     kernels: KernelChoices = DEFAULT_KERNELS,
 ) -> torch.Tensor:
     """LayerNorm over the trailing axis, fp32 centred statistics, per row:
-    the kernel at the LayerNorm kernel sites, the plain version elsewhere."""
-    if not kernels.ln_kernel_at(site):
-        return layer_norm_plain(x, gamma, beta, eps)
+    the kernel at the LayerNorm kernel sites where the JAX package's shape
+    conditions hold (C % 8 == 0, at least 2^14 elements), the plain version
+    elsewhere."""
     c = x.shape[-1]
-    return layer_norm_rows(x.reshape(-1, c), gamma, beta, eps).reshape(x.shape)
+    if not (kernels.ln_kernel_at(site) and c % 8 == 0 and x.numel() >= LN_MIN_ELEMS):
+        return layer_norm_plain(x, gamma, beta, eps)
+    return layer_norm_rows(x.reshape(-1, c).contiguous(), gamma, beta, eps).reshape(x.shape)

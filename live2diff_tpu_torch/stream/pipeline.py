@@ -45,7 +45,9 @@ class StreamConfig:
     width: int = 512
     do_add_noise: bool = True
     vae_scale_factor: int = 8
-    vae_scaling: float = 1.0  # TAESD consumes and produces scaled SD latents
+    # SD-1.5's AutoencoderKL latent scaling, the JAX default; the builder
+    # passes 1.0 for TAESD, which consumes and produces scaled latents
+    vae_scaling: float = 0.18215
     cache_dtype: torch.dtype = torch.bfloat16
     # emit frames as uint8 [0, 255] on the device
     output_uint8: bool = False

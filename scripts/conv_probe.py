@@ -35,8 +35,9 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
+
+from probe_util import build_copies, card, cold_timer, max_sm_mhz
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -104,16 +105,6 @@ ORIGINAL = "const int co = i % COUT, ci = (i / COUT) % cinp, tap = i / (COUT * c
 SOURCE_ORDER = "const int tap = i % 9, ci = (i / 9) % cinp, co = i / (9 * cinp);"
 
 
-def nvcc(src: str, lib: str) -> ctypes.CDLL:
-    from live2diff_tpu_torch.ops import _build
-
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-o", lib, src],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}\n{out.stderr}")
-    return ctypes.CDLL(lib)
-
-
 def conv_entry(lib: ctypes.CDLL):
     fn = lib.conv3x3
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -126,17 +117,9 @@ def build_variants(old_src: str, out_dir: str):
     port's nvcc flags; returns {name: its C entry}."""
     with open(old_src) as f:
         text = f.read()
-    if text.count(ORIGINAL) != 1:
-        raise RuntimeError(f"{old_src}: the WMMA kernel's weight loop was not found")
-    os.makedirs(out_dir, exist_ok=True)
-    libs = {}
-    for name, body in (("shared-memory order", text),
-                       ("source order", text.replace(ORIGINAL, SOURCE_ORDER))):
-        src = os.path.join(out_dir, f"wmma_{name.split()[0]}.cu")
-        with open(src, "w") as f:
-            f.write(body)
-        libs[name] = conv_entry(nvcc(src, src[:-3] + ".so"))
-    return libs
+    libs = build_copies(text, {"shared-memory order": (),
+                               "source order": ((ORIGINAL, SOURCE_ORDER),)}, out_dir, "wmma")
+    return {name: conv_entry(lib) for name, lib in libs.items()}
 
 
 def stage_breakdown(torch, out_dir: str, mhz: float):
@@ -147,15 +130,7 @@ def stage_breakdown(torch, out_dir: str, mhz: float):
 
     with open(os.path.join(_build.CSRC_DIR, "conv3x3.cu")) as f:
         text = f.read()
-    for anchor, new in STAGE_EDITS:
-        if text.count(anchor) != 1:
-            raise RuntimeError(f"conv3x3.cu: probe anchor not found once: {anchor!r}")
-        text = text.replace(anchor, new)
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "conv3x3_stages.cu")
-    with open(src, "w") as f:
-        f.write(text)
-    lib = nvcc(src, os.path.join(out_dir, "conv3x3_stages.so"))
+    lib = build_copies(text, {"stages": STAGE_EDITS}, out_dir, "conv3x3_stages")["stages"]
     fn = conv_entry(lib)
     counters = np.zeros((1024, 8), dtype=np.uint64)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -203,15 +178,9 @@ def ablations(torch, out_dir: str, time_ms):
 
     with open(os.path.join(_build.CSRC_DIR, "conv3x3.cu")) as f:
         text = f.read()
-    fns = {}
-    for name, (anchor, stand_in) in (("kernel", ("", "")), ("without the ldmatrix gathers", GATHER),
-                                     ("without the wgmma products", PRODUCT)):
-        if anchor and text.count(anchor) != 1:
-            raise RuntimeError(f"conv3x3.cu: ablation anchor not found once: {anchor!r}")
-        src = os.path.join(out_dir, f"conv3x3_{len(fns)}.cu")
-        with open(src, "w") as f:
-            f.write(text.replace(anchor, stand_in) if anchor else text)
-        fns[name] = conv_entry(nvcc(src, src[:-3] + ".so"))
+    libs = build_copies(text, {"kernel": (), "without the ldmatrix gathers": (GATHER,),
+                               "without the wgmma products": (PRODUCT,)}, out_dir, "conv3x3")
+    fns = {name: conv_entry(lib) for name, lib in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(2)
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
@@ -257,31 +226,13 @@ def main() -> int:
     from live2diff_tpu_torch.ops import _build
     from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card()
     print(smi)
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0])
+    mhz = max_sm_mhz()
     out_dir = os.path.join(_build.BUILD_DIR, "conv_probe")
     stages = stage_breakdown(torch, out_dir, mhz)
-    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-
-    def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(args.reps):
-            flush.fill_(1)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in events) / args.reps
-
+    time_ms = cold_timer(torch, args.reps)
     ablated = ablations(torch, out_dir, time_ms)
     result = dict(device=smi, clock_mhz=mhz, stages=stages, ablations=ablated)
     if not args.old:

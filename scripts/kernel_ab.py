@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Per-call device time of the port's bf16 flash entries and fused convs, on one GPU.
+"""Per-call device time of the port's stream attention, bf16 flash entries and fused convs, on one GPU.
 
-    python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH]
+    python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH] [--only stream|flash|conv]
 
-Times ``flash_attention`` (d-major, kernel #3) at every shape of the
+Times both stream-attention entries (kernels #1 and #2, int8 and bf16
+cache) at the four UNet levels of the 512x512 and of the 768x512 stream
+step, ``flash_attention`` (d-major, kernel #3) at every shape of the
 512x512 stream step and of ``prepare`` that ``chip_smoke.py`` checks,
 ``flash_self_attention`` (s-major, kernel #4) at its 512x512 and 768x512
 shapes, and ``conv3x3`` (kernels #6 and #7, stride 1 and 2) at every shape
@@ -14,6 +16,7 @@ commit unpacked with ``git archive``) both trees are timed on the same card
 in turns: this tree, the other, the other, this tree, each in a process of
 its own that builds its own kernels. Prints one line per shape with the
 mean of each tree's two turns, and the card's name and power limit.
+``--only`` times one family of kernels.
 """
 
 from __future__ import annotations
@@ -24,8 +27,14 @@ import os
 import subprocess
 import sys
 
+from probe_util import card, cold_timer
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# (C, HW) of stream attention: the four UNet levels at 512x512, then at
+# 768x512; 2 denoising steps, 8 heads, a 16-slot window
+STREAM = [(320, 4096), (640, 1024), (1280, 256), (1280, 64),
+          (320, 6144), (640, 1536), (1280, 384), (1280, 96)]
 # (B, Sq, Sk, H, D) of the d-major entry: the stream step's self- and
 # cross-attention at the four levels and the ViT, then prepare's shapes
 DMAJOR = [
@@ -53,48 +62,52 @@ CONV = [
 ]
 
 
-def child(root: str, reps: int) -> None:
+def child(root: str, reps: int, only) -> None:
     """Time every shape with the port found under ``root``; print JSON."""
     # this checkout may be on the path (PYTHONPATH, the working directory)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") != ROOT]
     import torch
 
     from live2diff_tpu_torch.ops import flash_attention as fa
+    from live2diff_tpu_torch.ops import stream_attention as sa
     from live2diff_tpu_torch.ops.conv import conv3x3
 
-    # overwrites the L2 before each call, and keeps the card busy longer than
-    # the host takes to launch the call (as chip_smoke.py's time_ms)
-    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-
-    def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(reps):
-            flush.fill_(1)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in events) / reps
-
+    time_ms = cold_timer(torch, reps)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, sq, sk, h, d in DMAJOR:
+    for cache in ("int8", "bf16") if only in (None, "stream") else ():
+        for c, hw in STREAM:
+            s, w, heads = 2, 16, 8
+            q = torch.randn(s, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+            extra = torch.randn(s, w, heads, hw, generator=gen, device="cuda")
+            extra[:, 9:] = float("-inf")
+            pe_v = torch.randn(s, w, c, generator=gen, device="cuda")
+            scale = (c // heads) ** -0.5
+            if cache == "int8":
+                data = torch.randint(-127, 128, (s, 2, w, c, hw), generator=gen, device="cuda",
+                                     dtype=torch.int8)
+                scales = 0.002 + 0.02 * torch.rand(s, 2, w, c, generator=gen, device="cuda")
+                fn = lambda: sa.stream_window_attention_int8(  # noqa: E731
+                    q, data, scales, extra, pe_v, scale, heads)
+            else:
+                data = torch.randn(s, 2, w, c, hw, generator=gen, device="cuda").to(torch.bfloat16)
+                fn = lambda: sa.stream_window_attention_bf16(  # noqa: E731
+                    q, data, extra, pe_v, scale, heads)
+            rows.append(dict(entry=f"stream {cache}", shape=f"q[{s},{hw},{c}]", ms=time_ms(fn)))
+            del data
+    for b, sq, sk, h, d in DMAJOR if only in (None, "flash") else ():
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(b, sk, h, d, generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
         rows.append(dict(entry="dmajor", shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]",
                          ms=time_ms(lambda: fa.flash_attention(q, k, v, d ** -0.5))))
-    for b, s, d in SMAJOR:
+    for b, s, d in SMAJOR if only in (None, "flash") else ():
         q, k, v = (torch.randn(b, s, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
                    .transpose(1, 2) for _ in range(3))
         rows.append(dict(entry="smajor", shape=f"q[{b},8,{s},{d}] blocks (512, 1024)",
                          ms=time_ms(lambda: fa.flash_self_attention(q, k, v, d ** -0.5, 512,
                                                                      1024))))
-    for b, h, w, cin, stride, bias, fused in CONV:
+    for b, h, w, cin, stride, bias, fused in CONV if only in (None, "conv") else ():
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(torch.bfloat16)
         wt = (torch.randn(64, cin, 3, 3, generator=gen, device="cuda") / (9 * cin) ** 0.5
               ).to(torch.bfloat16)
@@ -108,9 +121,10 @@ def child(root: str, reps: int) -> None:
     print(json.dumps(dict(port=os.path.dirname(fa.__file__), rows=rows)))
 
 
-def run_child(root: str, reps: int):
+def run_child(root: str, reps: int, only):
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root,
-                          "--reps", str(reps)], capture_output=True, text=True, timeout=600)
+                          "--reps", str(reps)] + (["--only", only] if only else []),
+                         capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise RuntimeError(f"timing {root} failed:\n{out.stdout}\n{out.stderr}")
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -124,17 +138,17 @@ def main() -> int:
     ap.add_argument("--other", help="another checkout of the repository, timed in turns")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the rows to this file")
+    ap.add_argument("--only", choices=("stream", "flash", "conv"))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.reps)
+        child(args.child, args.reps, args.only)
         return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card()
     print(smi)
     other = os.path.abspath(args.other) if args.other else None
     order = [ROOT] if not other else [ROOT, other, other, ROOT]
-    runs = [(root, run_child(root, args.reps)) for root in order]
+    runs = [(root, run_child(root, args.reps, args.only)) for root in order]
     table = []
     for i, row in enumerate(runs[0][1]):
         this = [r[i]["ms"] for root, r in runs if root == ROOT]

@@ -66,3 +66,17 @@ def test_build_pipeline_from_a_reference_yaml():
     state = built.stream.init_state()
     assert len(state.kv_caches) == 40
     assert state.kv_caches[0][0].shape == (4, 2, 16, 8, 64)
+    # TAESD takes and gives scaled latents: the builder sets no scaling
+    assert built.stream.cfg.vae_scaling == 1.0
+
+
+def test_stream_config_defaults_match_jax():
+    """The port's StreamConfig() defaults are the JAX StreamConfig()'s,
+    vae_scaling (SD-1.5's 0.18215, for an AutoencoderKL) included."""
+    from live2diff_tpu.stream.pipeline import StreamConfig as JaxStreamConfig
+    from live2diff_tpu_torch.stream.pipeline import StreamConfig
+
+    ours, theirs = StreamConfig(), JaxStreamConfig()
+    assert ours.vae_scaling == theirs.vae_scaling == 0.18215
+    for f in ("height", "width", "do_add_noise", "vae_scale_factor", "output_uint8"):
+        assert getattr(ours, f) == getattr(theirs, f), f

@@ -5,8 +5,12 @@ test skips. They complement ``chip_smoke.py`` (which checks the production
 shapes of the 512x512 stream step) with ragged shapes: lengths that are not
 multiples of the kernels' tiles, every head width the flash kernel takes,
 channel counts that take the conv kernel's scalar load path, row counts
-that are not a multiple of the LayerNorm kernel's 8 rows a block, both
-cache dtypes of stream attention, the s-major and int8-QK flash entries on
+that are not a multiple of the LayerNorm kernel's 8 rows a block and
+channel counts past one warp a row (C = 2048, 2560), both cache dtypes of
+stream attention at every production level of both rows and at ragged
+ones, on each of its routes (TMA or element staging, with and without a
+cluster), with only the sink visible, and over repeated cold launches
+that must agree bit for bit, the s-major and int8-QK flash entries on
 strided ``[B, H, S, D]`` views at lengths that are not multiples of their
 tiles (the bf16 flash entries: 128 query rows, 128 keys or 64 at D > 128),
 the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
@@ -276,61 +280,152 @@ def test_conv3x3_calls_leave_no_state(dev):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("s,hw,c,heads", [
-    (2, 100, 320, 8),   # ragged position tile
-    (1, 33, 64, 2),
-    (2, 64, 1280, 8),   # the 8x8 latent level (HW = 64)
-    (3, 7, 16, 1),
-])
+# every production level of the 512x512 and 768x512 steps (2 steps, 8
+# heads), then ragged shapes: position tiles cut by HW (100, 33, 7 and the
+# odd latent levels 96 and 24 of tests/test_torch_nonsquare.py), channel
+# strides that take the element-load staging route, heads cut into 8-channel
+# chunks over clusters
+STREAM_SHAPES = [
+    (2, 4096, 320, 8), (2, 1024, 640, 8), (2, 256, 1280, 8), (2, 64, 1280, 8),
+    (2, 6144, 320, 8), (2, 1536, 640, 8), (2, 384, 1280, 8), (2, 96, 1280, 8),
+    (2, 100, 320, 8), (1, 33, 64, 2), (3, 7, 16, 1), (2, 96, 320, 8), (2, 24, 320, 8),
+    (1, 24, 1280, 8), (2, 200, 48, 2), (2, 100, 8, 1), (1, 40, 36, 3),
+]
+
+
+def _stream_args(dev, cache, s, hw, c, heads, visible, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn(gen, dev, s, hw, c).to(torch.bfloat16)
+    extra = _randn(gen, dev, s, 16, heads, hw)
+    extra[:, visible:] = float("-inf")  # slots not yet visible; the sink always is
+    pe_v = _randn(gen, dev, s, 16, c)
+    scale = (c // heads) ** -0.5
+    if cache == "int8":
+        data = torch.randint(-127, 128, (s, 2, 16, c, hw), generator=gen, device=dev,
+                             dtype=torch.int8)
+        scales = 0.002 + 0.02 * torch.rand(s, 2, 16, c, generator=gen, device=dev)
+        return (q, data, scales, extra, pe_v, scale, heads), (q, data, scales, extra, pe_v,
+                                                               scale, heads)
+    data = _randn(gen, dev, s, 2, 16, c, hw).to(torch.bfloat16)
+    return (q, data, extra, pe_v, scale, heads), (q, data, None, extra, pe_v, scale, heads)
+
+
+def _check_stream(dev, cache, s, hw, c, heads, visible=10):
+    """One launch of the entry, on the route plan() gives the shape, within
+    ATTN_TOL of the plain version."""
+    from live2diff_tpu_torch.ops import stream_attention as sa
+
+    args, plain_args = _stream_args(dev, cache, s, hw, c, heads, visible, hw * 10 + c)
+    kernel = stream_window_attention_int8 if cache == "int8" else stream_window_attention_bf16
+    name = f"stream_attention_{cache}"
+    staging, cluster = sa.plan(s, hw, c, heads, 1 if cache == "int8" else 2,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    before, routes = _build.launch_counts[name], dict(sa.route_counts)
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert sa.route_counts[staging] == routes[staging] + 1
+    assert sa.route_counts["cluster"] == routes["cluster"] + (cluster > 1)
+    assert out.shape == (s, hw, c) and out.dtype == torch.bfloat16
+    assert _rel(out, stream_window_attention_plain(*plain_args)) < ATTN_TOL
+    return staging, cluster
+
+
+@pytest.mark.parametrize("s,hw,c,heads", STREAM_SHAPES)
 def test_stream_attention_int8_matches_plain(dev, s, hw, c, heads):
-    gen = torch.Generator(device=dev).manual_seed(hw * 10 + c)
-    q = _randn(gen, dev, s, hw, c).to(torch.bfloat16)
-    data = torch.randint(-127, 128, (s, 2, 16, c, hw), generator=gen, device=dev,
-                         dtype=torch.int8)
-    scales = 0.002 + 0.02 * torch.rand(s, 2, 16, c, generator=gen, device=dev)
-    extra = _randn(gen, dev, s, 16, heads, hw)
-    extra[:, 10:] = float("-inf")  # slots not yet visible; the sink always is
-    pe_v = _randn(gen, dev, s, 16, c)
-    args = (q, data, scales, extra, pe_v, (c // heads) ** -0.5, heads)
-    before = _build.launch_counts["stream_attention_int8"]
-    out = stream_window_attention_int8(*args)
-    torch.cuda.synchronize()
-    assert _build.launch_counts["stream_attention_int8"] == before + 1
-    assert _rel(out, stream_window_attention_plain(*args)) < ATTN_TOL
+    _check_stream(dev, "int8", s, hw, c, heads)
 
 
-@pytest.mark.parametrize("s,hw,c,heads", [(2, 100, 320, 8), (1, 33, 64, 2), (2, 64, 1280, 8),
-                                          (3, 7, 16, 1)])
+@pytest.mark.parametrize("s,hw,c,heads", STREAM_SHAPES)
 def test_stream_attention_bf16_matches_plain(dev, s, hw, c, heads):
-    gen = torch.Generator(device=dev).manual_seed(hw * 10 + c + 1)
-    q = _randn(gen, dev, s, hw, c).to(torch.bfloat16)
-    cache = _randn(gen, dev, s, 2, 16, c, hw).to(torch.bfloat16)
-    extra = _randn(gen, dev, s, 16, heads, hw)
-    extra[:, 10:] = float("-inf")  # slots not yet visible; the sink always is
-    pe_v = _randn(gen, dev, s, 16, c)
-    args = (q, cache, extra, pe_v, (c // heads) ** -0.5, heads)
-    before = _build.launch_counts["stream_attention_bf16"]
-    out = stream_window_attention_bf16(*args)
-    torch.cuda.synchronize()
-    assert _build.launch_counts["stream_attention_bf16"] == before + 1
-    ref = stream_window_attention_plain(q, cache, None, *args[2:])
-    assert _rel(out, ref) < ATTN_TOL
+    _check_stream(dev, "bf16", s, hw, c, heads)
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+@pytest.mark.parametrize("s,hw,c,heads", [(2, 4096, 320, 8), (2, 64, 1280, 8), (2, 100, 320, 8)])
+def test_stream_attention_sink_only(dev, cache, s, hw, c, heads):
+    """All but the 8 sink slots masked to -inf, as at the first streamed
+    frames, on the plain 16-byte route, a cluster, and element loads."""
+    _check_stream(dev, cache, s, hw, c, heads, visible=8)
+
+
+def test_stream_attention_shapes_cover_every_route(dev):
+    """The shapes above take both staging routes, each with and without a
+    cluster."""
+    from live2diff_tpu_torch.ops import stream_attention as sa
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    routes = {(staging, cluster > 1) for cache, nbytes in (("int8", 1), ("bf16", 2))
+              for staging, cluster in (sa.plan(s, hw, c, h, nbytes, sms)
+                                       for s, hw, c, h in STREAM_SHAPES)}
+    assert routes == {("tma", False), ("tma", True), ("scalar", False), ("scalar", True)}
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+@pytest.mark.parametrize("hw,c", [(4096, 320), (256, 1280), (100, 320)])
+def test_stream_attention_repeated_cold_launches_agree(dev, cache, hw, c):
+    """100 launches, each on inputs evicted from the L2, bit-equal: copies
+    that land out of order must not let a stage be read early, and the
+    cluster's sums run in a fixed order."""
+    args, plain_args = _stream_args(dev, cache, 2, hw, c, 8, 12, 21)
+    kernel = stream_window_attention_int8 if cache == "int8" else stream_window_attention_bf16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    first = kernel(*args)
+    differ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(100):
+        flush.fill_(1)
+        differ += (kernel(*args) != first).any()
+    assert differ.item() == 0
+    assert _rel(first, stream_window_attention_plain(*plain_args)) < ATTN_TOL
 
 
 @pytest.mark.parametrize("rows", [1, 13, 577, 4616])
-@pytest.mark.parametrize("c", [16, 64, 768, 1024])
+@pytest.mark.parametrize("c", [16, 64, 768, 1024, 1280, 2048, 2560])
 def test_layer_norm_matches_plain(dev, rows, c):
+    """The kernel (one warp a row up to C = 1280, one block a row above)
+    against the plain version; ``layer_norm`` launches it at a chosen site
+    where the JAX gate does (C % 8 == 0, at least 2^14 elements)."""
     gen = torch.Generator(device=dev).manual_seed(rows * 10 + c)
     x = (_randn(gen, dev, rows, c) * 3.0 + 2.0).to(torch.bfloat16)
     g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
     b = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    ref = layer_norm_plain(x, g, b, 1e-6)
     before = _build.launch_counts["layer_norm"]
-    out = layer_norm(x, g, b, 1e-6, site="vit")
+    out = layer_norm_rows(x, g, b, 1e-6)
     torch.cuda.synchronize()
     assert _build.launch_counts["layer_norm"] == before + 1
     assert out.shape == x.shape and out.dtype == torch.bfloat16
-    assert _rel(out, layer_norm_plain(x, g, b, 1e-6)) < LN_TOL
-    layer_norm(x, g, b, 1e-6, site="spatial")  # the UNet sites stay plain
+    assert _rel(out, ref) < LN_TOL
+    gated = x.numel() >= 1 << 14
+    assert _rel(layer_norm(x, g, b, 1e-6, site="vit"), ref) < LN_TOL
+    assert _build.launch_counts["layer_norm"] == before + 1 + gated
+    layer_norm(x, g, b, 1e-6, site="spatial")  # the UNet sites stay plain by default
+    assert _build.launch_counts["layer_norm"] == before + 1 + gated
+
+
+def test_layer_norm_at_the_unet_sites_build_pipeline_chooses(dev):
+    """build_pipeline(ln_kernel_sites={"spatial"}) gives the UNet's spatial
+    LayerNorms the kernel: at C = 1280, the widest, it launches and agrees."""
+    from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.models.layers import FusedLayerNorm
+
+    cfg = {"num_inference_steps": 50, "t_index_list": [30, 40]}
+    tiny = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=2,
+                cross_attention_dim=64, norm_num_groups=8, motion_num_attention_heads=2)
+    built = build_pipeline(cfg, 64, 64, dtype=torch.bfloat16, device=dev, use_depth=False,
+                           unet_overrides=tiny, ln_kernel_sites={"spatial"})
+    kernels = next(m.kernels for m in built.unet.modules()
+                   if isinstance(m, FusedLayerNorm) and m.site == "spatial")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = (_randn(gen, dev, 2, 256, 1280) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, 1280)).to(torch.bfloat16)
+    b = (0.1 * _randn(gen, dev, 1280)).to(torch.bfloat16)
+    before = _build.launch_counts["layer_norm"]
+    out = layer_norm(x, g, b, 1e-5, site="spatial", kernels=kernels)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["layer_norm"] == before + 1
+    assert _rel(out, layer_norm_plain(x, g, b, 1e-5)) < LN_TOL
+    layer_norm(x, g, b, 1e-5, site="temporal", kernels=kernels)  # not chosen
     assert _build.launch_counts["layer_norm"] == before + 1
 
 
@@ -349,10 +444,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         layer_norm_rows(torch.zeros(4, 20, device=dev, dtype=torch.bfloat16),
                         torch.ones(20, device=dev, dtype=torch.bfloat16),
                         torch.zeros(20, device=dev, dtype=torch.bfloat16))
-    with pytest.raises(ValueError):  # C > 1024
-        layer_norm_rows(torch.zeros(4, 2048, device=dev, dtype=torch.bfloat16),
-                        torch.ones(2048, device=dev, dtype=torch.bfloat16),
-                        torch.zeros(2048, device=dev, dtype=torch.bfloat16))
+    # C = 2048: one block a row, no longer refused
+    x = torch.randn(4, 2048, device=dev).to(torch.bfloat16)
+    g, b = (torch.ones(2048, device=dev, dtype=torch.bfloat16),
+            torch.zeros(2048, device=dev, dtype=torch.bfloat16))
+    assert _rel(layer_norm_rows(x, g, b), layer_norm_plain(x, g, b)) < LN_TOL
+    with pytest.raises(ValueError):  # C > 10240
+        layer_norm_rows(torch.zeros(4, 10248, device=dev, dtype=torch.bfloat16),
+                        torch.ones(10248, device=dev, dtype=torch.bfloat16),
+                        torch.zeros(10248, device=dev, dtype=torch.bfloat16))
     s, hw, c = 2, 8, 16
     with pytest.raises(TypeError, match="int8 or bf16"):  # an fp32 cache has no kernel
         stream_window_attention(

@@ -43,7 +43,7 @@ from live2diff_tpu_torch.ops.flash_attention import (
 )
 from live2diff_tpu_torch.ops.norm import layer_norm
 from live2diff_tpu_torch.ops.stream_attention import (
-    stream_window_attention_bf16, stream_window_attention_int8,
+    plan, stream_window_attention_bf16, stream_window_attention_int8,
 )
 
 T = torch.from_numpy
@@ -109,10 +109,13 @@ def _kernel_args(q, pe_q, pe_k, bias, heads):
     return q_full, extra.astype(np.float32), scale
 
 
-def test_stream_attention_int8_plain_matches_pallas_interpret():
+# HW = 128, and the odd latent levels of tests/test_torch_nonsquare.py (96,
+# 24), which are no multiple of the kernel's 128-position int8 tile
+@pytest.mark.parametrize("hw", [128, 96, 24])
+def test_stream_attention_int8_plain_matches_pallas_interpret(hw):
     """Kernel #1's plain version == the Pallas int8 kernel (interpret mode)."""
     rs = np.random.RandomState(2)
-    q, (data, scales), pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=128, cache="int8")
+    q, (data, scales), pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=hw, cache="int8")
     q_full, extra, scale = _kernel_args(q, pe_q, pe_k, bias, heads)
     with pltpu.force_tpu_interpret_mode():
         ref = stream_window_attention_kernel_int8(
@@ -126,12 +129,13 @@ def test_stream_attention_int8_plain_matches_pallas_interpret():
     assert rel_err(out.numpy(), np.asarray(ref).transpose(0, 2, 1)) < 1e-4
 
 
-def test_stream_attention_bf16_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("hw", [128, 96, 24])
+def test_stream_attention_bf16_plain_matches_pallas_interpret(hw):
     """Kernel #2's plain version == the Pallas bf16-cache kernel (interpret
     mode): an fp32 query over the same bf16 cache on both sides. 1e-4: the
     Pallas kernel reassociates the head reduction through a mask matmul."""
     rs = np.random.RandomState(9)
-    q, kv, pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=128, cache="bf16")
+    q, kv, pe_q, pe_k, pe_v, bias, heads = _stream_inputs(rs, hw=hw, cache="bf16")
     q_full, extra, scale = _kernel_args(q, pe_q, pe_k, bias, heads)
     jcache, tcache = _bf16_pair(kv)
     with pltpu.force_tpu_interpret_mode():
@@ -141,6 +145,71 @@ def test_stream_attention_bf16_plain_matches_pallas_interpret():
         )
     out = stream_window_attention_bf16(T(q_full), tcache, T(extra), T(pe_v), scale, heads)
     assert rel_err(out.numpy(), np.asarray(ref).transpose(0, 2, 1)) < 1e-4
+
+
+# (steps, HW, C, heads, bytes a cache element) -> (staging, cluster) on a
+# 132-SM card: the four UNet levels of both rows, int8 and bf16 caches, and
+# the ragged card-test shapes
+@pytest.mark.parametrize("shape,route", [
+    ((2, 4096, 320, 8, 1), ("tma", 1)), ((2, 1024, 640, 8, 1), ("tma", 2)),
+    ((2, 256, 1280, 8, 1), ("tma", 5)), ((2, 64, 1280, 8, 1), ("tma", 7)),
+    ((2, 6144, 320, 8, 1), ("tma", 1)), ((2, 1536, 640, 8, 1), ("tma", 1)),
+    ((2, 384, 1280, 8, 1), ("tma", 3)), ((2, 96, 1280, 8, 1), ("tma", 7)),
+    ((2, 4096, 320, 8, 2), ("tma", 1)), ((2, 1024, 640, 8, 2), ("tma", 1)),
+    ((2, 256, 1280, 8, 2), ("tma", 3)), ((2, 64, 1280, 8, 2), ("tma", 7)),
+    ((2, 100, 320, 8, 1), ("scalar", 5)), ((1, 33, 64, 2, 2), ("scalar", 4)),
+    ((3, 7, 16, 1, 1), ("scalar", 2)), ((2, 24, 320, 8, 1), ("scalar", 5)),
+    ((2, 24, 320, 8, 2), ("tma", 5)), ((2, 100, 8, 1, 1), ("scalar", 1)),
+])
+def test_stream_attention_route_plan(shape, route):
+    """The staging route follows the channel stride (HW x element bytes a
+    multiple of 16); a cluster splits the head's 8-channel chunks only where
+    the tiles alone would leave SMs idle, never past one chunk a CTA, and
+    no wider than the same most chunks a CTA needs."""
+    assert plan(*shape) == route
+    steps, hw, c, heads, nbytes = shape
+    cluster = route[1]
+    chunks = -(-(c // heads) // 8)
+    ctas = steps * heads * -(-hw // (128 // nbytes))
+    assert cluster <= min(8, chunks)
+    assert (cluster == 1) == (ctas >= 132 or chunks == 1)
+    if cluster > 1:
+        assert -(-chunks // (cluster - 1)) > -(-chunks // cluster)
+
+
+def test_stream_attention_plan_takes_misaligned_caches_by_elements():
+    assert plan(2, 4096, 320, 8, 1, aligned=False) == ("scalar", 1)
+
+
+# The JAX gate (live2diff_tpu/ops/norm.py:239-246) sends a LayerNorm to its
+# kernel only with C % 8 == 0 and at least 2^14 elements, at a chosen site;
+# the port's layer_norm sends the same calls to its kernel wrapper.
+@pytest.mark.parametrize("rows,c,site,taken", [
+    (64, 320, "spatial", True),      # 20480 elements: the kernel
+    (13, 1280, "spatial", True),     # 16640 elements at the UNet's widest C
+    (32, 320, "spatial", False),     # 10240 < 2^14: plain
+    (51, 320, "spatial", False),     # 16320 < 2^14: plain
+    (256, 68, "spatial", False),     # C % 8 != 0: plain
+    (16, 1280, "temporal", False),   # the site is not chosen
+])
+def test_layer_norm_gate_matches_jax(monkeypatch, rows, c, site, taken):
+    monkeypatch.setattr(jattn, "_BACKEND", "tpu")
+    monkeypatch.setattr(jnorm, "_LN_SITE_TAGS", {"spatial"})
+    jax_calls, port_calls = [], []
+    real_j, real_t = jnorm._layer_norm_kernel, tnorm.layer_norm_rows
+    monkeypatch.setattr(jnorm, "_layer_norm_kernel",
+                        lambda *a, **kw: (jax_calls.append(1), real_j(*a, **kw))[1])
+    monkeypatch.setattr(tnorm, "layer_norm_rows",
+                        lambda *a, **kw: (port_calls.append(1), real_t(*a, **kw))[1])
+    rs = np.random.RandomState(18)
+    x = (rs.randn(rows, c) * 2 + 1).astype(np.float32)
+    g, b = (1 + 0.1 * rs.randn(c)).astype(np.float32), (0.1 * rs.randn(c)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jnorm.layer_norm(*map(jnp.asarray, (x, g, b)), eps=1e-5, site=site)
+    out = tnorm.layer_norm(T(x), T(g), T(b), eps=1e-5, site=site,
+                           kernels=KernelChoices(ln_kernel_sites={"spatial"}))
+    assert len(jax_calls) == len(port_calls) == int(taken)
+    assert rel_err(out.numpy(), ref) < 1e-5
 
 
 # LayerNorm in fp32: both sides take the same centred two-pass statistics,
