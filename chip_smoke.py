@@ -16,8 +16,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    tensor-core operations and the exponentials at 16 a clock per SM); the
    stream-attention rows also print their route and their share of the
    bound. The GroupNorm kernel is checked after phase 7, and the LayerNorm
-   kernel again after phase 10, at the shapes those phases recorded. Then the int8 KV cache's quantisation on the card against
-   the CPU, bit for bit.
+   kernel again after phase 10, at the shapes those phases recorded. The
+   int8-QK entry's pre-pass is held to ``quantize_groups`` bit for bit and
+   timed alone at each of its shapes. An empty kernel, timed the same way,
+   gives the launch floor under the short calls. Then the int8 KV cache's
+   quantisation on the card against the CPU, bit for bit.
 3. small input: a narrow pipeline (64x64 frames, a narrow 384x384 DPT) on
    the card, bf16 with the kernels, against the same weights and noise in
    fp32 on the CPU.
@@ -493,8 +496,17 @@ def check_flash_variant(torch, gen, dev, variant: str):
             raise AssertionError(f"{variant} flash: relative RMS error {rms:.3e} > {VARIANT_RMS_TOL}")
         gap = {}
         if variant == "int8":
+            # the pre-pass's codes and scales, bit for bit, and its share of the time
+            q8, s_q, k8, s_k = fa.quantize_groups_cuda(q, k, 512, bk)
+            for codes, scales, x, blk in ((q8, s_q, q, 512), (k8, s_k, k, bk)):
+                ref_codes, ref_scales = fa.quantize_groups(x, fa.pick_block(s, blk))
+                if not (torch.equal(scales, ref_scales) and torch.equal(codes.float(), ref_codes)):
+                    raise AssertionError(f"int8 flash pre-pass at q[{b},{h},{s},{d}]: codes or "
+                                         f"scales differ from quantize_groups")
+            del q8, k8, ref_codes
+            gap["prepass_ms"] = time_ms(lambda: fa.quantize_groups_cuda(q, k, 512, bk), 20)
             unq = fa.flash_self_attention_plain(q, k, v, scale, 512, bk)
-            gap = dict(unquantised_rel_err=compare(unq, ref, float("inf"))[1],
+            gap.update(unquantised_rel_err=compare(unq, ref, float("inf"))[1],
                        unquantised_rms_err=rel_rms(unq, ref))
             del unq
             if not (gap["unquantised_rel_err"] > INT8_MAX_TOL
@@ -518,6 +530,21 @@ def check_flash_variant(torch, gen, dev, variant: str):
             library=library_note,
         ))
     return rows
+
+
+def launch_floor_ms(torch, _build) -> float:
+    """The per-call time of an empty kernel (one warp, no work) by
+    ``time_ms``: the floor under calls that sit near launch latency."""
+    import ctypes
+
+    fn = _build.load("layer_norm").layer_norm_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        _build.check(fn(torch.cuda.current_stream().cuda_stream), "empty kernel")
+
+    return time_ms(launch, 100)
 
 
 def check_quantize_kv(torch):
@@ -1001,7 +1028,7 @@ def profile_depth(torch, stream, frames):
 def print_rows(k) -> None:
     for r in k["shapes"]:
         extra = "".join(f" {key} {r[key]:.2e}" for key in (
-            "rms_err", "unquantised_rel_err", "unquantised_rms_err") if key in r)
+            "rms_err", "unquantised_rel_err", "unquantised_rms_err", "prepass_ms") if key in r)
         if r.get("calls_768x512"):
             extra += f" calls at 768x512 {r['calls_768x512']}"
         if "calls_ln_all" in r:
@@ -1105,6 +1132,9 @@ def main() -> int:
     ]
     for k in kernels:
         print_rows(k)
+    floor = launch_floor_ms(torch, _build)
+    next(k for k in kernels if k["name"] == "layer_norm")["launch_floor_ms"] = floor
+    print(f"launch floor: an empty kernel takes {floor:.4f} ms a call by the same timer ({smi})")
     print(f"int8 KV cache quantisation, card against CPU: {check_quantize_kv(torch)}")
     sys.stdout.flush()
 
@@ -1222,9 +1252,10 @@ def main() -> int:
     del result
     # the kernel against its plain version at every shape phase 10 gave it
     ln_index = next(i for i, k in enumerate(kernels) if k["name"] == "layer_norm")
-    kernels[ln_index] = summarise(
+    kernels[ln_index] = dict(summarise(
         "layer_norm", src + "layer_norm.cu", "live2diff_tpu/ops/norm.py:224",
-        kernels[ln_index]["shapes"] + check_layer_norm_sites(torch, gen, dev, ln_step, ln_prepare))
+        kernels[ln_index]["shapes"] + check_layer_norm_sites(torch, gen, dev, ln_step, ln_prepare)),
+        launch_floor_ms=floor)
     print_rows(kernels[ln_index])
 
     # each kernel's launches come from the phase that runs it

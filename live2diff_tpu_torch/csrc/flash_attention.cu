@@ -37,23 +37,17 @@ using namespace fsm90;
 long long g_encode_ns = 0, g_encode_calls = 0;
 
 // a (D, S, H, B) map of bf16 with element strides (s, h, b), boxes of 64
-// columns by `rows` rows, 128-byte swizzle, zeros out of bounds
+// columns by `rows` rows
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
             long long ss, long long sh, long long sb, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_rows(fn, map, false, ptr, D, S, H, B, ss * 2, sh * 2, sb * 2, rows);
 }
 
 // st: the (b, h, s) element strides of q, k, v and out, in that order
 template <int KS, bool SMAJOR>
 int launch(const void* q, const void* k, const void* v, void* out, const long long* st, int B,
            int H, int Sq, int Sk, int D, int block_k, float scale, cudaStream_t stream) {
-  using C = Cfg<(KS + 3) / 4>;
+  using C = typename Shape<KS, false>::C;
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
@@ -86,7 +80,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const long lo
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);  // persistent: one CTA a SM
   flash_sm90_kernel<KS, SMAJOR><<<grid, kThreads, C::SMEM, stream>>>(
       tq, tk, tv, (bf16*)out, st[9], st[10], st[11], H, Sq, Sk, D, block_k, (int)n_tiles,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, nullptr, nullptr, Sq);
   return (int)cudaGetLastError();
 }
 

@@ -6,39 +6,68 @@
 // group, s = max(max |x|, 1e-12) / 127 and code = round_half_even(x * (1/s));
 // a group is block_q query rows (block_k key rows) of one (b, h), the Pallas
 // kernel's tiles. The logits are the exact int32 Q.K times (s_k * s_q) *
-// scale; then an fp32 online softmax updated once per key group, with p
-// taken against the group's max and cast to bf16, and P.V on bf16 operands
-// with fp32 accumulation.
+// scale; then an fp32 softmax updated once per key group, with p taken
+// against the group's max and cast to bf16, and P.V on bf16 operands with
+// fp32 accumulation.
 //
-// The groups are far larger than this kernel's tiles (512 query rows and up
-// to 4096 key rows, against 64-row tiles), so a tile cannot find its own
-// scale. Two kernels: group_amax_kernel reduces max |x| over each group of Q
-// and of K (64-row chunks, merged by atomicMax on the float's bits, exact
-// and order-free since |x| >= 0); flash_int8_kernel then quantises each
-// tile of 64 rows in shared memory with the scales of its rows' groups and
-// multiplies on the int8 tensor cores (WMMA 16x16x16 s8 -> s32; D zero-padded
-// to a multiple of 16, exact in int8). Its softmax is the s-major block walk
-// of flash_common.cuh with the key groups as blocks: a first sweep over a
-// group's 64-key tiles finds the row max, a second takes p against it. So p
-// is rounded to bf16 from the same fp32 logits and the same max as in the
-// Pallas kernel and the plain version, and the kernel differs from them only
-// in the order of its fp32 sums.
+// Two launches a call, because a group (512 query rows; up to 4096 key rows
+// at 40 columns, 320 KB of bf16) is far larger than an attention tile and a
+// tile cannot find its group's scale:
+// 1. quantise_kernel, the pre-pass: a group of Q or of K is split over up to
+//    8 CTAs of a thread-block cluster, each a share of about 2,048 16-byte
+//    vectors (8 loads a thread in flight); a cluster takes one group of the
+//    larger kind or several of the smaller (at [2, 8, 4096, 40]: 8 CTAs a
+//    4096-row K group, 2 a 512-row Q group, 384 CTAs in all). Each CTA
+//    reduces max |x| over its share, a group's CTAs meet on the max through
+//    distributed shared memory (max is exact, so the order is free), and
+//    each writes its rows' codes (from registers, or read again from L2
+//    past one batch) as int8 [B, H, S, DP] (the caller's DP: D rounded up to
+//    16, for 16-byte TMA strides), and the group's first CTA the scale, fp32
+//    [B, H, G]. The same 1/s multiply and __float2int_rn as quantize_groups,
+//    so the codes are bit-equal to it.
+// 2. flash_sm90_kernel<KS, true, true> (flash_sm90.cuh): the s-major walk of
+//    the Hopper core with the key groups as its blocks; Q and K codes by TMA
+//    into 128-byte swizzled rows, S by int8 wgmma (s32, exact) over
+//    KS = ceil(D / 32) k-steps, each logit float(S) * ((s_k * s_q) * scale)
+//    in fp32, p against the group's max from the first sweep. So p is
+//    rounded to bf16 from the same fp32 logits and the same max as in the
+//    Pallas kernel and the plain version, and the kernel differs from them
+//    only in its exponential (ex2.approx) and the order of its fp32 sums.
+//
+// What bounds it at S = 4096: the exponentials (one per score, 16 a clock
+// per SM), as for the bf16 core; the two sweeps' int8 products together
+// cost the tensor cores what one bf16 sweep does. The pre-pass reads the
+// bytes of Q and K once from memory (a share past one batch again from L2)
+// and writes the codes.
 //
 // Layout: q, k, v, out [B, H, S, D] bf16, read through strides with unit
 // stride along D (the model's [B, S, H, D] transposed, without a copy).
-//
-// What bounds it: tensor-core operations at S = 4096 (the int8 half of the
-// work at twice the bf16 rate) and, for the amax pass, the bytes of Q and K
-// (read twice in all). This first version is simple, not fast: each key
-// tile is quantised twice (once a sweep), the int8 tiles live in shared
-// memory in a chunk-major [D/16][64][16] layout, so every WMMA operand
-// pointer is 32-byte aligned, and the int32 scores go through shared memory.
 
-#include "flash_common.cuh"
+#include <cooperative_groups.h>
+
+#include "flash_sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace flash;
+using namespace fsm90;
+
+constexpr int kQuantThreads = 256;
+constexpr int kMaxCluster = 8;
+constexpr int kBatch = 8;                            // 16-byte loads a thread in flight
+constexpr int kCtaVectors = kQuantThreads * kBatch;  // one batch of a CTA
+
+// the caller's scratch: the codes of Q and K, [B, H, S, dp] int8 (dp, the
+// row pitch, a multiple of 16 bytes and at least D), and the fp32 scales of
+// their groups, [B, H, S / block]
+struct Scratch {
+  int8_t* q8;
+  int8_t* k8;
+  float* q_scales;
+  float* k_scales;
+  int dp;
+};
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -50,210 +79,240 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   }
 }
 
-// the scale of a group from its max |x| (as the Pallas kernel computes it)
-__device__ __forceinline__ float group_scale(unsigned int amax_bits) {
-  return fmaxf(__uint_as_float(amax_bits), 1e-12f) / 127.0f;
+// how the groups of Q and of K map onto clusters: a group's rows are split
+// over `split` CTAs (a power of two), so that a CTA's share is about one
+// batch of loads, and a cluster of max(split_q, split_k) CTAs takes one
+// group of the larger kind or several of the smaller
+struct Plan {
+  int cluster, split_q, split_k, clusters_q, clusters_k;
+};
+
+Plan plan(int B, int H, int Sq, int Sk, int D, int block_q, int block_k) {
+  auto split = [&](int block) {
+    int s = 1;
+    while (s < kMaxCluster && (long long)s * kCtaVectors < (long long)block * (D / 8)) s *= 2;
+    return s;
+  };
+  Plan p;
+  p.split_q = split(block_q);
+  p.split_k = split(block_k);
+  p.cluster = p.split_q > p.split_k ? p.split_q : p.split_k;
+  const long long nq = (long long)B * H * (Sq / block_q), nk = (long long)B * H * (Sk / block_k);
+  const int per_q = p.cluster / p.split_q, per_k = p.cluster / p.split_k;
+  p.clusters_q = (int)((nq + per_q - 1) / per_q);
+  p.clusters_k = (int)((nk + per_k - 1) / per_k);
+  return p;
 }
 
-// max |x| over each (b, h, group of `block` rows): one block per 64-row chunk
-// of a group; amax [B, H, G] must be zeroed
-__global__ void __launch_bounds__(kThreads) group_amax_kernel(
-    const bf16* __restrict__ x, const long long sb, const long long sh, const long long ss,
-    int S, int D, int block, int chunks_per_group, int H, int G,
-    unsigned int* __restrict__ amax) {
-  const int g = blockIdx.x / chunks_per_group, chunk = blockIdx.x % chunks_per_group;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row0 = g * block + chunk * 64;
-  const int row1 = min(min(row0 + 64, (g + 1) * block), S);
-  const bf16* xb = x + b * sb + h * sh;
-  const int vpr = D / 8;  // 16-byte vectors per row
+// the pre-pass: cluster c < clusters_q takes Q's groups, the others K's, a
+// group (b * H + h) * G + g in that order; x's rows are read through the
+// (b, h, s) element strides, kBatch 16-byte loads a thread in flight
+__global__ void __launch_bounds__(kQuantThreads) quantise_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss, int H, int Sq, int Sk, int D,
+    int block_q, int block_k, int nq, int nk, Plan p, Scratch out) {
+  __shared__ float warp_max[kQuantThreads / 32];
+  __shared__ float cta_max;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), c = blockIdx.x / p.cluster;
+  const bool is_q = c < p.clusters_q;
+  const int split = is_q ? p.split_q : p.split_k;
+  const int G = is_q ? Sq / block_q : Sk / block_k, block = is_q ? block_q : block_k;
+  const int gi = (is_q ? c : c - p.clusters_q) * (p.cluster / split) + rank / split;
+  const bool live = gi < (is_q ? nq : nk);  // the last cluster of a kind may have spare CTAs
+  const int bh = gi / G, g = gi % G, b = bh / H, h = bh % H;
+  const bf16* src = is_q ? q + b * q_sb + h * q_sh : k + b * k_sb + h * k_sh;
+  const long long ss = is_q ? q_ss : k_ss;
+  const int dp = out.dp, vpr = D / 8;  // code row bytes, 16-byte vectors a row
+  int8_t* dst = (is_q ? out.q8 : out.k8) + (size_t)bh * (is_q ? Sq : Sk) * dp;
+
+  // this CTA's rows of the group, and their vectors
+  const int part = rank % split, per = (block + split - 1) / split;
+  const int r0 = g * block + min(part * per, block), r1 = g * block + min((part + 1) * per, block);
+  const int n = live ? (r1 - r0) * vpr : 0;
+  auto addr = [&](int i) {
+    return reinterpret_cast<const uint4*>(src + (r0 + i / vpr) * ss + (i % vpr) * 8);
+  };
+
+  uint4 v[kBatch];
   float m = 0.f;
-  for (int i = threadIdx.x; i < (row1 - row0) * vpr; i += kThreads) {
-    const int r = row0 + i / vpr, c8 = i % vpr;
-    float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(xb + r * ss + c8 * 8), f);
+  for (int base = 0; base < n; base += kCtaVectors) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = base + u * kQuantThreads + threadIdx.x;
+      if (i < n) v[u] = __ldg(addr(i));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (base + u * kQuantThreads + threadIdx.x < n) {
+        float f[8];
+        unpack8(v[u], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
+      }
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ float warp_max[kThreads / 32];
   if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
     float mm = warp_max[0];
-    for (int w = 1; w < kThreads / 32; ++w) mm = fmaxf(mm, warp_max[w]);
-    atomicMax(amax + ((size_t)b * H + h) * G + g, __float_as_uint(mm));
+    for (int w = 1; w < kQuantThreads / 32; ++w) mm = fmaxf(mm, warp_max[w]);
+    cta_max = mm;
   }
-}
+  cl.sync();  // every CTA's max is written
+  // the group's max over its CTAs (max is exact: the order is free)
+  float amax = 0.f;
+  for (int r = rank - part; r < rank - part + split; ++r)
+    amax = fmaxf(amax, *cl.map_shared_rank(&cta_max, r));
+  // quantize_groups: s = max(amax, 1e-12) / 127, codes round(x * (1 / s))
+  const float s = fmaxf(amax, 1e-12f) / 127.0f;
+  const float inv = 1.0f / s;
+  if (live && part == 0 && threadIdx.x == 0) (is_q ? out.q_scales : out.k_scales)[gi] = s;
 
-// rows [row0, row0 + 64) of one (b, h) slice, quantised with their groups'
-// scales into dst [DP/16][64][16] int8; row_scale[r] gets row r's scale.
-// Rows at or past S and columns past D are zero.
-template <int DP>
-__device__ __forceinline__ void quantise_tile(signed char* dst, float* row_scale,
-                                              const bf16* src, int row0, int S,
-                                              long long row_stride, int D,
-                                              const unsigned int* amax, int block) {
-  constexpr int cpr = DP / 8;  // 8-element vectors per padded row
-  for (int i = threadIdx.x; i < 64 * cpr; i += kThreads) {
-    const int r = i / cpr, c8 = i % cpr, row = row0 + r;
-    uint2 packed = make_uint2(0u, 0u);
-    float s = 0.f;
-    if (row < S) {
-      s = group_scale(amax[row / block]);
-      if (c8 * 8 < D) {
-        const float inv = 1.0f / s;
-        float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(src + row * row_stride + c8 * 8), f);
-        signed char* c = reinterpret_cast<signed char*>(&packed);
+  // the codes, 8 a vector; a share of one batch is still in registers
+  for (int base = 0; base < n; base += kCtaVectors) {
+    if (n > kCtaVectors) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) c[j] = (signed char)__float2int_rn(f[j] * inv);
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * kQuantThreads + threadIdx.x;
+        if (i < n) v[u] = __ldg(addr(i));
       }
     }
-    *reinterpret_cast<uint2*>(dst + (c8 / 2) * 64 * 16 + r * 16 + (c8 % 2) * 8) = packed;
-    if (c8 == 0) row_scale[r] = s;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = base + u * kQuantThreads + threadIdx.x;
+      if (i < n) {
+        float f[8];
+        unpack8(v[u], f);
+        uint2 packed;
+        signed char* cc = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cc[j] = (signed char)__float2int_rn(f[j] * inv);
+        *reinterpret_cast<uint2*>(dst + (size_t)(r0 + i / vpr) * dp + (i % vpr) * 8) = packed;
+      }
+    }
   }
+  if (live && dp > D)  // columns [D, DP): zeros (D % 16 == 8)
+    for (int r = r0 + threadIdx.x; r < r1; r += kQuantThreads)
+      *reinterpret_cast<uint2*>(dst + (size_t)r * dp + D) = make_uint2(0u, 0u);
+  cl.sync();  // no CTA leaves while another may still read its max
 }
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  return (size_t)BQ * DP * sizeof(float)    // output accumulator
-         + (size_t)BQ * BK * sizeof(int)    // int32 scores
-         + (size_t)BQ * BK * sizeof(bf16)   // probabilities
-         + (size_t)BK * DP * sizeof(bf16)   // V tile
-         + (size_t)2 * 64 * DP              // Q and K int8 tiles
-         + (size_t)5 * 64 * sizeof(float);  // max, sum, rescale, q and k row scales
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_int8_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, const long long q_sb, const long long q_sh, const long long q_ss,
-    const long long k_sb, const long long k_sh, const long long k_ss, const long long v_sb,
-    const long long v_sh, const long long v_ss, const long long o_sb, const long long o_sh,
-    const long long o_ss, const unsigned int* __restrict__ q_amax,
-    const unsigned int* __restrict__ k_amax, int H, int Sq, int Sk, int D, int block_q,
-    int block_k, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Os = reinterpret_cast<float*>(smem_raw);
-  int* Si = reinterpret_cast<int*>(Os + BQ * DP);
-  bf16* Ps = reinterpret_cast<bf16*>(Si + BQ * BK);
-  bf16* Vs = Ps + BQ * BK;
-  signed char* Q8 = reinterpret_cast<signed char*>(Vs + BK * DP);
-  signed char* K8 = Q8 + 64 * DP;
-  float* Ms = reinterpret_cast<float*>(K8 + 64 * DP);
-  float* Ls = Ms + BQ;
-  float* As = Ls + BQ;
-  float* SQ = As + BQ;
-  float* SK = SQ + BQ;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int Gq = Sq / block_q, Gk = Sk / block_k;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
-  const unsigned int* qa_bits = q_amax + ((size_t)b * H + h) * Gq;
-  const unsigned int* ka_bits = k_amax + ((size_t)b * H + h) * Gk;
-
-  quantise_tile<DP>(Q8, SQ, qb, qt * BQ, Sq, q_ss, D, qa_bits, block_q);
-  for (int i = tid; i < BQ * DP; i += kThreads) Os[i] = 0.f;
-  if (tid < BQ) {
-    Ms[tid] = -INFINITY;
-    Ls[tid] = 0.f;
-  }
-
-  const int r0 = warp * 16;  // this warp's query rows within the tile
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> qa[DP / 16];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], Q8 + kk * 64 * 16 + r0 * 16, 16);
-
-  // the key groups are the walk's blocks: a tile never straddles two
-  block_walk<DP>(
-      vb, v_ss, Sk, D, block_k, Ps, Vs, Os, Ms, Ls, As,
-      [&](int k0, int k1) { quantise_tile<DP>(K8, SK, kb, k0, k1, k_ss, D, ka_bits, block_k); },
-      [&]() {  // int32 scores S[r0:r0+16, 0:64] = Q8 K8^T, exact
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-          wmma::fill_fragment(acc, 0);
-#pragma unroll
-          for (int kk = 0; kk < DP / 16; ++kk) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bt;
-            wmma::load_matrix_sync(bt, K8 + kk * 64 * 16 + n * 16 * 16, 16);
-            wmma::mma_sync(acc, qa[kk], bt, acc);
-          }
-          wmma::store_matrix_sync(Si + r0 * BK + n * 16, acc, BK, wmma::mem_row_major);
-        }
-        __syncwarp();
-      },
-      // logit = float(int) * ((s_k * s_q) * scale), the Pallas kernel's order
-      [&](int r, int c) { return (float)Si[r * BK + c] * ((SK[c] * SQ[r]) * scale); });
-
-  store_rows<DP>(out + b * o_sb + h * o_sh, o_ss, Os, Ls, r0, lane, qt * BQ, Sq, D);
-}
-
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* out, unsigned int* amax,
-           const long long* st, int B, int H, int Sq, int Sk, int D, int block_q, int block_k,
-           float scale, cudaStream_t stream) {
-  const int Gq = Sq / block_q, Gk = Sk / block_k;
-  unsigned int* q_amax = amax;
-  unsigned int* k_amax = amax + (size_t)B * H * Gq;
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * (size_t)B * H * (Gq + Gk),
-                                    stream);
+// st: the (b, h, s) element strides of q and k (the first 6 of the entry's)
+int quantise(const void* q, const void* k, const long long* st, int B, int H, int Sq, int Sk,
+             int D, int block_q, int block_k, const Scratch& out, cudaStream_t stream) {
+  const Plan p = plan(B, H, Sq, Sk, D, block_q, block_k);
+  const long long ctas = ((long long)p.clusters_q + p.clusters_k) * p.cluster;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas, 1, 1);
+  cfg.blockDim = dim3(kQuantThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, quantise_kernel, (const bf16*)q, (const bf16*)k,
+                                       st[0], st[1], st[2], st[3], st[4], st[5], H, Sq, Sk, D,
+                                       block_q, block_k, B * H * (Sq / block_q),
+                                       B * H * (Sk / block_k), p, out);
   if (err != cudaSuccess) return (int)err;
-  const int cpg_q = (block_q + 63) / 64, cpg_k = (block_k + 63) / 64;
-  group_amax_kernel<<<dim3(Gq * cpg_q, H, B), kThreads, 0, stream>>>(
-      (const bf16*)q, st[0], st[1], st[2], Sq, D, block_q, cpg_q, H, Gq, q_amax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  group_amax_kernel<<<dim3(Gk * cpg_k, H, B), kThreads, 0, stream>>>(
-      (const bf16*)k, st[3], st[4], st[5], Sk, D, block_k, cpg_k, H, Gk, k_amax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  constexpr size_t smem = smem_bytes<DP>();
-  err = cudaFuncSetAttribute(flash_int8_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_int8_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], q_amax, k_amax, H, Sq, Sk, D,
-      block_q, block_k, scale);
   return (int)cudaGetLastError();
+}
+
+// the attention kernel over the codes of `sc`; st as the entry's
+template <int KS>
+int attend(const void* v, void* out, const Scratch& sc, const long long* st, int B, int H,
+           int Sq, int Sk, int D, int block_q, int block_k, float scale, cudaStream_t stream) {
+  using C = typename Shape<KS, true>::C;
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const long long dp = sc.dp;
+  CUtensorMap tq, tk, tv;
+  const bool ok =
+      encode_rows(fn, &tq, true, sc.q8, (int)dp, Sq, H, B, dp, dp * Sq, dp * Sq * H, BM) &&
+      encode_rows(fn, &tk, true, sc.k8, (int)dp, Sk, H, B, dp, dp * Sk, dp * Sk * H, C::BN) &&
+      encode_rows(fn, &tv, false, v, D, Sk, H, B, st[8] * 2, st[7] * 2, st[6] * 2, C::BN);
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<KS, true, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long n_tiles = (long long)((Sq + BM - 1) / BM) * H * B;
+  if (n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);  // persistent: one CTA a SM
+  flash_sm90_kernel<KS, true, true><<<grid, kThreads, C::SMEM, stream>>>(
+      tq, tk, tv, (bf16*)out, st[9], st[10], st[11], H, Sq, Sk, D, block_k, (int)n_tiles, scale,
+      sc.q_scales, sc.k_scales, block_q);
+  return (int)cudaGetLastError();
+}
+
+// the shapes both entries take: D % 8 == 0 up to 160, the blocks dividing
+// the lengths, a query block of whole 128-row tiles (or all of Sq), 16-byte
+// rows
+bool valid(const long long* st, int n_strides, int B, int H, int Sq, int Sk, int D, int block_q,
+           int block_k) {
+  if (D % 8 != 0 || D <= 0 || D > 160 || Sq <= 0 || Sk <= 0 || block_q <= 0 || block_k <= 0 ||
+      Sq % block_q != 0 || Sk % block_k != 0 || (block_q % BM != 0 && block_q != Sq) ||
+      B <= 0 || H <= 0 || B > 65535 || H > 65535)
+    return false;
+  for (int i = 0; i < n_strides; ++i)
+    if (st[i] % 8 != 0) return false;
+  return true;
 }
 
 }  // namespace
 
 // q, k, v, out [B, H, S, D] bf16 with unit stride along D; strides holds the
 // (b, h, s) strides in elements of q, k, v and out, in that order. block_q
-// and block_k must divide Sq and Sk. amax is scratch of B * H * (Sq /
-// block_q + Sk / block_k) 32-bit words.
+// and block_k divide Sq and Sk, and block_q is a multiple of 128 or Sq.
+// q8, k8, q_scales, k_scales: the scratch (see Scratch), 16-byte aligned.
 extern "C" int flash_attention_int8(const void* q, const void* k, const void* v, void* out,
-                                    void* amax, const long long* strides, int B, int H, int Sq,
-                                    int Sk, int D, int block_q, int block_k, float scale,
+                                    void* q8, void* k8, void* q_scales, void* k_scales, int dp,
+                                    const long long* strides, int B, int H, int Sq, int Sk,
+                                    int D, int block_q, int block_k, float scale,
                                     void* stream) {
-  if (D % 8 != 0 || Sq <= 0 || Sk <= 0 || block_q <= 0 || block_k <= 0 || Sq % block_q != 0 ||
-      Sk % block_k != 0 || B > 65535 || H > 65535)
+  if (!valid(strides, 12, B, H, Sq, Sk, D, block_q, block_k) || dp % 16 != 0 || dp < D)
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
-  unsigned int* a = (unsigned int*)amax;
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((D + 15) / 16) {
-    case 1: return launch<16>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 2: return launch<32>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 3: return launch<48>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 4: return launch<64>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 5: return launch<80>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 6: return launch<96>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 8: return launch<128>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
-    case 10: return launch<160>(q, k, v, out, a, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
+  const Scratch sc{(int8_t*)q8, (int8_t*)k8, (float*)q_scales, (float*)k_scales, dp};
+  const int rc = quantise(q, k, strides, B, H, Sq, Sk, D, block_q, block_k, sc, st);
+  if (rc != (int)cudaSuccess) return rc;
+#define INT8_CASE(ks) \
+  case ks: return attend<ks>(v, out, sc, strides, B, H, Sq, Sk, D, block_q, block_k, scale, st);
+  switch ((D + 31) / 32) {  // the k-steps of Q.K
+    INT8_CASE(1) INT8_CASE(2) INT8_CASE(3) INT8_CASE(4) INT8_CASE(5)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef INT8_CASE
+}
+
+// the pre-pass alone, for checking its codes and scales: arguments as above
+// (the first 6 strides are read)
+extern "C" int flash_attention_int8_quantize(const void* q, const void* k, void* q8, void* k8,
+                                             void* q_scales, void* k_scales, int dp,
+                                             const long long* strides, int B, int H, int Sq,
+                                             int Sk, int D, int block_q, int block_k,
+                                             void* stream) {
+  if (!valid(strides, 6, B, H, Sq, Sk, D, block_q, block_k) || dp % 16 != 0 || dp < D)
+    return (int)cudaErrorInvalidValue;
+  const Scratch sc{(int8_t*)q8, (int8_t*)k8, (float*)q_scales, (float*)k_scales, dp};
+  return quantise(q, k, strides, B, H, Sq, Sk, D, block_q, block_k, sc, (cudaStream_t)stream);
 }

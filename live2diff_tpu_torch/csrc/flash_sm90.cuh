@@ -1,7 +1,8 @@
 // The Hopper flash-attention core (sm_90a) that both entries of
-// flash_attention.cu run: the d-major entry (replaces the Pallas kernel
+// flash_attention.cu run, the d-major entry (replaces the Pallas kernel
 // flash_self_attention_dmajor) and the s-major entry (replaces
-// flash_self_attention), live2diff_tpu/ops/flash_attention.py.
+// flash_self_attention), and that flash_attention_int8.cu runs with an int8
+// Q.K (replaces flash_self_attention_int8), live2diff_tpu/ops/flash_attention.py.
 //
 // What bounds it at the main path's D = 40: not the tensor cores but the
 // exponentials. [2, 8, 4096, 40] is 268 M exp2 at 16 a clock per SM (about
@@ -50,6 +51,21 @@
 // The epilogue writes O * (1 / l) (1 where l == 0) as bf16 from registers,
 // rows inside Sq and columns inside D, in the caller's strides.
 //
+// int8 Q.K (INT8 = true, s-major only): Q and K arrive as int8 codes,
+// [B, H, S, DP] with DP = D rounded up to 16, by TMA into the same 128-byte
+// swizzled rows (128 codes, 4 k-steps of 32; columns past DP are TMA's
+// zeros): a K tile moves half the bf16 bytes from memory, and the ring has
+// one more stage. S = Q K^T is wgmma m64 n(BN) k32 s32.s8.s8, both operands
+// K-major, over KS = ceil(D / 32) k-steps, exact in s32. The key blocks are
+// the key quantisation groups, and a query tile of 128 rows lies in one
+// query group, so the factor f = (s_k * s_q) * scale is one fp32 number per
+// (tile, block). Sweep 1 keeps the integer row max of S (its min where
+// f < 0), two scores an instruction with Hopper's DPX three-way max, and
+// takes the block max as float(max) * f. Sweep 2 turns each score into the
+// logit float(S) * f (the int becomes a float exactly through the mantissa
+// of 1.5 * 2^23: |S| <= 127^2 * 160 < 2^22), rounded as the plain version
+// rounds it, before the log2-domain FFMA with c = log2(e).
+//
 // A wait on an mbarrier that lasts over 2^32 clocks (about 2 s) traps: a
 // pipeline fault becomes a launch error, not a hang.
 
@@ -58,6 +74,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -71,16 +88,28 @@ constexpr int kThreads = kConsumerThreads + 128;  // and the producer warpgroup
 // 384 x 168 = 128 x 24 + 256 x 240 registers
 constexpr int kRegsConsumer = 240, kRegsProducer = 24;
 
-template <int DC>
+// DC: chunks of 64 bf16 columns of V (and O); QKC: chunks of 128-byte rows
+// of Q and K (64 bf16 or 128 int8 columns each)
+template <int DC, int QKC = DC, bool INT8 = false>
 struct Cfg {
-  static constexpr int BN = DC == 3 ? 64 : 128;       // keys per tile
-  static constexpr int NS = DC == 1 ? 3 : 2;           // K/V stages
-  static constexpr int DPAD = 64 * DC;                 // P.V width
-  static constexpr int Q_BYTES = BM * 128 * DC;
-  static constexpr int KV_BYTES = BN * 128 * DC;       // one K or V tile
+  static constexpr int BN = DC == 3 ? 64 : 128;                // keys per tile
+  static constexpr int NS = (DC == 1 ? 3 : 2) + (INT8 ? 1 : 0);  // K/V stages
+  static constexpr int DPAD = 64 * DC;                         // P.V width
+  static constexpr int Q_BYTES = BM * 128 * QKC;
+  static constexpr int K_BYTES = BN * 128 * QKC;               // one K tile
+  static constexpr int V_BYTES = BN * 128 * DC;                // one V tile
   static constexpr int BAR_BYTES = 8 * (4 + 3 * NS);
   // two Q buffers, NS stages of K and V, the mbarriers, 1 KB of alignment
-  static constexpr int SMEM = 2 * Q_BYTES + 2 * NS * KV_BYTES + BAR_BYTES + 1024;
+  static constexpr int SMEM = 2 * Q_BYTES + NS * (K_BYTES + V_BYTES) + BAR_BYTES + 1024;
+};
+
+// the chunking of a core instance: KS k-steps of Q.K (16 bf16 or 32 int8
+// columns each)
+template <int KS, bool INT8>
+struct Shape {
+  static constexpr int DC = INT8 ? (KS + 1) / 2 : (KS + 3) / 4;
+  static constexpr int QKC = (KS + 3) / 4;
+  using C = Cfg<DC, QKC, INT8>;
 };
 
 // ---------------------------------------------------------------------------
@@ -159,6 +188,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
@@ -271,6 +305,43 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= A B, m64 nN k32, s8 in, s32 accumulate (exact); A and B K-major
+// from shared memory, as int8 wgmma requires
+template <int N>
+__device__ void wgmma_ss_s8(uint32_t (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<64>(uint32_t (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<128>(uint32_t (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
@@ -301,25 +372,32 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // tensor maps: q (box 64 x BM rows), k and v (box 64 x BN rows), each over
-// (D, S, H, B) in the caller's strides. out [b, h, s, d] at the element
-// strides o_sb, o_sh, o_ss (unit stride along d). c = scale * log2(e).
-// Sk must be a multiple of block_k (the d-major entry passes block_k = Sk).
-// KS = ceil(D / 16) k-steps of Q.K; DC = ceil(KS / 4) chunks of 64 columns.
-// The grid is persistent: CTA i takes query tiles i, i + gridDim.x, ... of
-// the B * H * ceil(Sq / BM) tiles, ordered (b, h, query tile).
-template <int KS, bool SMAJOR, int DC = (KS + 3) / 4>
+// (D, S, H, B) in the caller's strides; with INT8, q and k over the codes
+// (DP, S, H, B), boxes of 128 codes. out [b, h, s, d] at the element
+// strides o_sb, o_sh, o_ss (unit stride along d). c = scale * log2(e); with
+// INT8, c = scale, and q_scales [B, H, Sq / block_q], k_scales
+// [B, H, Sk / block_k] are the groups' scales (block_q a multiple of BM, or
+// Sq). Sk must be a multiple of block_k (the d-major entry passes block_k =
+// Sk). KS k-steps of Q.K (ceil(D / 16) bf16, ceil(D / 32) int8). The grid
+// is persistent: CTA i takes query tiles i, i + gridDim.x, ... of the
+// B * H * ceil(Sq / BM) tiles, ordered (b, h, query tile).
+template <int KS, bool SMAJOR, bool INT8 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                       long long o_sb, long long o_sh, long long o_ss, int H, int Sq, int Sk,
-                      int D, int block_k, int n_tiles, float c) {
-  using C = Cfg<DC>;
-  constexpr int BN = C::BN, NS = C::NS;
+                      int D, int block_k, int n_tiles, float c,
+                      const float* __restrict__ q_scales, const float* __restrict__ k_scales,
+                      int block_q) {
+  static_assert(SMAJOR || !INT8, "the int8 Q.K runs the s-major walk");
+  using C = typename Shape<KS, INT8>::C;
+  constexpr int BN = C::BN, NS = C::NS, QKC = Shape<KS, INT8>::QKC, DC = Shape<KS, INT8>::DC;
+  constexpr int kQKCols = INT8 ? 128 : 64;  // Q/K columns a 128-byte row holds
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128-byte swizzle: 1 KB aligned
   const uint32_t sK = sQ + 2 * C::Q_BYTES;
-  const uint32_t sV = sK + NS * C::KV_BYTES;
-  const uint32_t q_full = sV + NS * C::KV_BYTES, q_empty = q_full + 16;
+  const uint32_t sV = sK + NS * C::K_BYTES;
+  const uint32_t q_full = sV + NS * C::V_BYTES, q_empty = q_full + 16;
   const uint32_t k_full = q_empty + 16, v_full = k_full + 8 * NS, empty = v_full + 8 * NS;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -356,9 +434,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(q_empty + 8 * qb, ((local >> 1) & 1) ^ 1);
         mbar_expect_tx(q_full + 8 * qb, C::Q_BYTES);
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          tma_load(sQ + qb * C::Q_BYTES + cc * BM * 128, &tq, q_full + 8 * qb, cc * 64, qt * BM,
-                   h, b);
+        for (int cc = 0; cc < QKC; ++cc)
+          tma_load(sQ + qb * C::Q_BYTES + cc * BM * 128, &tq, q_full + 8 * qb, cc * kQKCols,
+                   qt * BM, h, b);
         for (int blk = 0; blk < blocks; ++blk) {
           for (int sweep = 0; sweep < kSweeps; ++sweep) {
             const bool with_v = sweep == kSweeps - 1;
@@ -366,16 +444,16 @@ __global__ void __launch_bounds__(kThreads, 1)
               const int k0 = blk * block_k + t * BN;
               const int st = job % NS;
               mbar_wait(empty + 8 * st, ((job / NS) & 1) ^ 1);
-              mbar_expect_tx(k_full + 8 * st, C::KV_BYTES);
+              mbar_expect_tx(k_full + 8 * st, C::K_BYTES);
 #pragma unroll
-              for (int cc = 0; cc < DC; ++cc)
-                tma_load(sK + st * C::KV_BYTES + cc * BN * 128, &tk, k_full + 8 * st, cc * 64,
-                         k0, h, b);
+              for (int cc = 0; cc < QKC; ++cc)
+                tma_load(sK + st * C::K_BYTES + cc * BN * 128, &tk, k_full + 8 * st,
+                         cc * kQKCols, k0, h, b);
               if (with_v) {
-                mbar_expect_tx(v_full + 8 * st, C::KV_BYTES);
+                mbar_expect_tx(v_full + 8 * st, C::V_BYTES);
 #pragma unroll
                 for (int cc = 0; cc < DC; ++cc)
-                  tma_load(sV + st * C::KV_BYTES + cc * BN * 128, &tv, v_full + 8 * st, cc * 64,
+                  tma_load(sV + st * C::V_BYTES + cc * BN * 128, &tv, v_full + 8 * st, cc * 64,
                            k0, h, b);
               } else {
                 mbar_arrive(v_full + 8 * st);  // keeps the stage's V phase in step
@@ -396,8 +474,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // gives 0 the first turn and skips its last arrive, so both barriers
     // see as many arrivals as syncs
     if (wg == 1) named_arrive(1, kConsumerThreads);
-    const bool neg = c < 0.f;
-    const float cabs = fabsf(c);
+    // the log2-domain multiplier of a score: c, or log2(e) for the int8
+    // logits, which carry the scale in f
+    const float cq = INT8 ? 1.4426950408889634f : c;
+    const bool neg = cq < 0.f;
+    const float cabs = fabsf(cq);
     const float masked = neg ? INFINITY : -INFINITY;
 
     int job = 0, local = 0;
@@ -409,27 +490,46 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < C::DPAD / 2; ++i) o[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      // the tile's query-group scale (int8): the tile lies in one group
+      float s_q = 0.f;
+      if (INT8) s_q = q_scales[((size_t)b * H + h) * (Sq / block_q) + qt * BM / block_q];
       mbar_wait(q_full + 8 * qb, (local >> 1) & 1);
 
-      float s[BN / 2];         // the scores of a key tile, then its p in fp32
-      uint32_t p[BN / 16][4];  // p as bf16 pairs: P.V's A operand
+      float s[BN / 2];              // the scores of a key tile, then its p in fp32
+      uint32_t si[INT8 ? BN / 2 : 1];  // int8: the s32 scores of a key tile
+      uint32_t p[BN / 16][4];       // p as bf16 pairs: P.V's A operand
 
-      // Q.K of `jb`'s key tile into s: wait for K, take the tensor cores'
-      // turn, issue and commit (the caller waits)
+      // Q.K of `jb`'s key tile into s (si): wait for K, take the tensor
+      // cores' turn, issue and commit (the caller waits)
       auto issue_qk = [&](int jb) {
         const int st = jb % NS;
-        const uint32_t kt = sK + st * C::KV_BYTES;
+        const uint32_t kt = sK + st * C::K_BYTES;
         mbar_wait(k_full + 8 * st, (jb / NS) & 1);
         named_sync(1 + wg, kConsumerThreads);
-        fence_regs(s);
+        if constexpr (INT8) fence_regs(si);
+        else fence_regs(s);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
-          const uint32_t off = (kk % 4) * 32;  // 16 columns into the 128-byte row
-          wgmma_ss<BN>(s, sw128_desc(qa + (kk / 4) * BM * 128 + off, 16, 1024),
-                       sw128_desc(kt + (kk / 4) * BN * 128 + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % 4) * 32;  // one k-step: 32 bytes of the 128-byte row
+          const uint64_t da = sw128_desc(qa + (kk / 4) * BM * 128 + off, 16, 1024);
+          const uint64_t db = sw128_desc(kt + (kk / 4) * BN * 128 + off, 16, 1024);
+          if constexpr (INT8) wgmma_ss_s8<BN>(si, da, db, kk > 0);
+          else wgmma_ss<BN>(s, da, db, kk > 0);
         }
         wgmma_commit();
+      };
+      // after the wait for Q.K: its registers settled; int8 scores become
+      // the logits float(S) * f
+      auto scores_ready = [&](float f) {
+        if constexpr (INT8) {
+          fence_regs(si);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            s[i] = __fmul_rn(__int_as_float((int)si[i] + 0x4B400000) - 12582912.f, f);
+        } else {
+          fence_regs(s);
+        }
       };
       // ends the turn: the other warpgroup may issue
       auto end_turn = [&](int jb) {
@@ -438,7 +538,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // O += P V of `jb`'s tile: issue and commit (the caller waits)
       auto issue_pv = [&](int jb) {
         const int st = jb % NS;
-        const uint32_t vt = sV + st * C::KV_BYTES;
+        const uint32_t vt = sV + st * C::V_BYTES;
         mbar_wait(v_full + 8 * st, (jb / NS) & 1);
 #pragma unroll
         for (int j = 0; j < BN / 16; ++j)
@@ -482,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const bool hi = (i >> 1) & 1;
-          float x = ex2(fmaf(s[i], c, hi ? -m1 : -m0));
+          float x = ex2(fmaf(s[i], cq, hi ? -m1 : -m0));
           if (nv < BN && 8 * (i / 4) + 2 * (lane % 4) + (i % 2) >= nv) x = 0.f;
           s[i] = x;
           if (hi) l1 += x;
@@ -505,20 +605,71 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       for (int blk = 0; blk < blocks; ++blk) {
         const int kb0 = blk * block_k, kb1 = kb0 + block_k;
+        // int8: the block's logit factor (s_k * s_q) * scale, as the plain
+        // version rounds it
+        float f = 0.f;
+        if (INT8) f = __fmul_rn(__fmul_rn(k_scales[((size_t)b * H + h) * blocks + blk], s_q), c);
         if (SMAJOR) {
           // sweep 1: the block's row max, Q.K only
           float bm0 = -INFINITY, bm1 = -INFINITY;
-          for (int t = 0; t < tiles; ++t, ++job) {
-            issue_qk(job);
-            end_turn(job);
-            wgmma_wait<0>();
-            fence_regs(s);
-            mask(kb1 - kb0 - t * BN);
-            row_max(s, neg, bm0, bm1);
-            release(job);
+          if constexpr (INT8) {
+            // the integer max of S, or its min where f < 0 (f * S is then
+            // largest where S is least), two scores an instruction (the
+            // DPX three-way max); masked keys take the identity
+            const bool fneg = f < 0.f;
+            const int ident = fneg ? INT_MAX : INT_MIN;
+            int im0 = ident, im1 = ident;
+            for (int t = 0; t < tiles; ++t, ++job) {
+              issue_qk(job);
+              end_turn(job);
+              wgmma_wait<0>();
+              fence_regs(si);
+              const int nv = kb1 - kb0 - t * BN;
+              if (nv < BN) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i)
+                  if (8 * (i / 4) + 2 * (lane % 4) + (i % 2) >= nv) si[i] = (uint32_t)ident;
+              }
+              if (!fneg) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; i += 4) {
+                  im0 = __vimax3_s32(im0, (int)si[i], (int)si[i + 1]);
+                  im1 = __vimax3_s32(im1, (int)si[i + 2], (int)si[i + 3]);
+                }
+              } else {
+#pragma unroll
+                for (int i = 0; i < BN / 2; i += 4) {
+                  im0 = __vimin3_s32(im0, (int)si[i], (int)si[i + 1]);
+                  im1 = __vimin3_s32(im1, (int)si[i + 2], (int)si[i + 3]);
+                }
+              }
+              release(job);
+            }
+#pragma unroll
+            for (int x = 1; x <= 2; x <<= 1) {
+              const int o0 = __shfl_xor_sync(0xffffffffu, im0, x);
+              const int o1 = __shfl_xor_sync(0xffffffffu, im1, x);
+              im0 = fneg ? min(im0, o0) : max(im0, o0);
+              im1 = fneg ? min(im1, o1) : max(im1, o1);
+            }
+            // key kb0 is valid: every row has a finite max
+            bm0 = __fmul_rn((float)im0, f);
+            bm1 = __fmul_rn((float)im1, f);
+          } else {
+            for (int t = 0; t < tiles; ++t, ++job) {
+              issue_qk(job);
+              end_turn(job);
+              wgmma_wait<0>();
+              fence_regs(s);
+              mask(kb1 - kb0 - t * BN);
+              row_max(s, neg, bm0, bm1);
+              release(job);
+            }
+            bm0 = quad_max(bm0);
+            bm1 = quad_max(bm1);
           }
-          const float mn0 = fmaxf(m0, quad_max(bm0) * cabs);
-          const float mn1 = fmaxf(m1, quad_max(bm1) * cabs);
+          const float mn0 = fmaxf(m0, bm0 * cabs);
+          const float mn1 = fmaxf(m1, bm1 * cabs);
           const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
           m0 = mn0;
           m1 = mn1;
@@ -532,7 +683,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         issue_qk(job);
         end_turn(job);
         wgmma_wait<0>();
-        fence_regs(s);
+        scores_ready(f);
         softmax(kb1 - kb0, a0, a1);
         if (!SMAJOR) rescale(a0, a1);
         pack();
@@ -542,7 +693,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           issue_pv(jb - 1);
           end_turn(jb);
           wgmma_wait<1>();  // Q.K done; P.V of the tile before may still run
-          fence_regs(s);
+          scores_ready(f);
           softmax(kb1 - kb0 - t * BN, a0, a1);
           wgmma_wait<0>();
           fence_regs(o);
@@ -610,6 +761,21 @@ inline EncodeTiled encode_fn() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a flash operand's map: (cols, S, H, B) of bf16 or 1-byte codes at the
+// byte strides (s, h, b), boxes of 128 bytes of columns by `rows` rows,
+// 128-byte swizzle, zeros out of bounds
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, bool bytes, const void* ptr, int cols,
+                        int S, int H, int B, long long ss, long long sh, long long sb, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss, (cuuint64_t)sh, (cuuint64_t)sb};
+  const cuuint32_t box[4] = {bytes ? 128u : 64u, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace fsm90

@@ -18,7 +18,9 @@ Three CUDA entry points replace the three Pallas TPU flash kernels of
   ``flash_self_attention_int8``: Q and K quantised to int8 with one
   symmetric scale per group of ``block_q`` query rows and per group of
   ``block_k`` key rows (the Pallas kernel's tiles), an exact integer Q.K,
-  then the fp32 softmax and a bf16 P.V.
+  then the fp32 softmax and a bf16 P.V. Two launches a call: a pre-pass
+  writes the codes and scales into scratch, then the s-major walk of the
+  same Hopper core as the two bf16 entries runs on them with int8 ``wgmma``.
 
 The two ``[B, H, S, D]`` entries take ``scale``, ``block_q`` and ``block_k``
 as the JAX functions do, and shrink the blocks with ``pick_block`` to
@@ -277,6 +279,24 @@ def flash_self_attention(
     return out
 
 
+def _int8_scratch(q, k, bq: int, bk: int):
+    """The int8 entries' scratch, one allocation: the int8 codes of Q and K,
+    ``[B, H, S, dp]`` with the row pitch dp = D rounded up to 16 bytes (TMA's
+    stride unit; the pre-pass zeroes columns past D), then the fp32 scales of
+    their groups, ``[B, H, S // block]``. Returns (q8, k8, q scales, k
+    scales, dp)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dp = -(-d // 16) * 16
+    nq, nk = b * h * sq * dp, b * h * sk * dp
+    ns_q, ns_k = b * h * (sq // bq), b * h * (sk // bk)
+    buf = torch.empty(nq + nk + 4 * (ns_q + ns_k), dtype=torch.uint8, device=q.device)
+    scales = buf[nq + nk:].view(torch.float32)
+    return (buf[:nq].view(torch.int8).view(b, h, sq, dp),
+            buf[nq:nq + nk].view(torch.int8).view(b, h, sk, dp),
+            scales[:ns_q].view(b, h, -1), scales[ns_q:].view(b, h, -1), dp)
+
+
 def flash_self_attention_int8(
     q: torch.Tensor,  # [B, H, Sq, D]
     k: torch.Tensor,  # [B, H, Sk, D]
@@ -295,15 +315,38 @@ def flash_self_attention_int8(
     bq, bk = _blocks(q, k, block_q, block_k, "flash_self_attention_int8")
     out, strides = _bhsd_launch_args("flash_self_attention_int8", q, k, v)
     b, h, sq, d = q.shape
-    sk = k.shape[2]
-    # per-(b, h, group) max |x| of Q and K, as float bits (scratch)
-    amax = torch.empty(b * h * (sq // bq + sk // bk), dtype=torch.int32, device=q.device)
+    *scratch, dp = _int8_scratch(q, k, bq, bk)
     fn = _build.load("flash_attention_int8").flash_attention_int8
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), amax.data_ptr(), strides,
-            b, h, sq, sk, d, bq, bk, float(scale), _build.stream_handle(q))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(s.data_ptr() for s in scratch), dp, strides, b, h, sq, k.shape[2], d, bq, bk,
+            float(scale), _build.stream_handle(q))
     _build.check(rc, INT8_NAME)
     _build.launch_counts[INT8_NAME] += 1
     return out
+
+
+def quantize_groups_cuda(q: torch.Tensor, k: torch.Tensor, block_q: int = 512,
+                         block_k: int = 1024):
+    """The int8 entry's pre-pass alone, on CUDA tensors taken as
+    ``flash_self_attention_int8`` takes them: the codes and scales of Q's
+    groups of ``pick_block(Sq, block_q)`` rows and K's of ``pick_block(Sk,
+    block_k)``, which must equal ``quantize_groups``' bit for bit. For
+    checking the pre-pass only: no path of the port calls it, and it counts
+    no launch. Returns (Q codes ``[B, H, Sq, D]`` int8, Q scales
+    ``[B, H, Gq]``, K codes, K scales)."""
+    bq, bk = _blocks(q, k, block_q, block_k, "quantize_groups_cuda")
+    _, strides = _bhsd_launch_args("quantize_groups_cuda", q, k, k)
+    b, h, sq, d = q.shape
+    q8, k8, s_q, s_k, dp = _int8_scratch(q, k, bq, bk)
+    fn = _build.load("flash_attention_int8").flash_attention_int8_quantize
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), q8.data_ptr(), k8.data_ptr(), s_q.data_ptr(),
+            s_k.data_ptr(), dp, strides, b, h, sq, k.shape[2], d, bq, bk,
+            _build.stream_handle(q))
+    _build.check(rc, "flash_attention_int8_quantize")
+    return q8[..., :d], s_q, k8[..., :d], s_k

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Per-call device time of the port's stream attention, bf16 flash entries and fused convs, on one GPU.
+"""Per-call device time of the port's stream attention, flash entries, fused convs and LayerNorm, on one GPU.
 
-    python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH] [--only stream|flash|conv]
+    python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH]
+                                 [--only stream|flash|conv|int8|ln] [--device]
 
 Times both stream-attention entries (kernels #1 and #2, int8 and bf16
 cache) at the four UNet levels of the 512x512 and of the 768x512 stream
 step, ``flash_attention`` (d-major, kernel #3) at every shape of the
 512x512 stream step and of ``prepare`` that ``chip_smoke.py`` checks,
 ``flash_self_attention`` (s-major, kernel #4) at its 512x512 and 768x512
-shapes, and ``conv3x3`` (kernels #6 and #7, stride 1 and 2) at every shape
+shapes, ``conv3x3`` (kernels #6 and #7, stride 1 and 2) at every shape
 of ``chip_smoke.py``'s phase 2 (the 512x512 and 768x512 steps and
-``prepare``), with CUDA events, the L2 cache overwritten before each call. With
+``prepare``), ``flash_self_attention_int8`` (kernel #5) at its eight phase-2
+shapes (phase 6's and the 768x512 step's), and ``layer_norm_rows`` (kernel
+#9) at phase 4's ViT shapes and the UNet's shapes of phase 10
+(``ln_kernel_sites="all"``), with CUDA events, the L2 cache overwritten
+before each call. With
 ``--other DIR`` (another checkout of the repository, for example a parent
 commit unpacked with ``git archive``) both trees are timed on the same card
 in turns: this tree, the other, the other, this tree, each in a process of
 its own that builds its own kernels. Prints one line per shape with the
 mean of each tree's two turns, and the card's name and power limit.
-``--only`` times one family of kernels.
+``--only`` times one family of kernels. ``--device`` reads each call's
+kernels' own device time from a torch.profiler trace instead of CUDA events
+around the call (which also count the launch).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import os
 import subprocess
 import sys
 
-from probe_util import card, cold_timer
+from probe_util import card, cold_timer, device_timer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,6 +53,16 @@ DMAJOR = [
 # (B, S, D) of the s-major entry, H = 8, blocks (512, 1024)
 SMAJOR = [(2, 4096, 40), (2, 1024, 80), (2, 6144, 40), (2, 1536, 80), (8, 6144, 40),
           (8, 1536, 80)]
+# (B, S, D) of the int8-QK entry, H = 8, blocks (512, min(S, 4096)): the
+# 512x512 step (B = 2) and prepare (B = 8), then the 768x512 step's
+INT8 = [(2, 4096, 40), (2, 1024, 80), (8, 4096, 40), (8, 1024, 80), (2, 6144, 40),
+        (2, 1536, 80), (8, 6144, 40), (8, 1536, 80)]
+# (rows, C, eps) of LayerNorm: the ViT's 577 tokens a frame (one frame a
+# step, 8 in prepare), then the UNet's spatial and motion LayerNorms of a
+# 512x512 step (2 steps x HW tokens) and of prepare (8 frames)
+LN = [(577, 768, 1e-6), (4616, 768, 1e-6), (8192, 320, 1e-5), (2048, 640, 1e-5),
+      (512, 1280, 1e-5), (128, 1280, 1e-5), (32768, 320, 1e-5), (8192, 640, 1e-5),
+      (2048, 1280, 1e-5)]
 # (B, H, W, Cin, stride, bias, skip and ReLU) of the fused conv: the encoder
 # (B = 2) and decoder (B = 1) levels of the 512x512 and 768x512 steps,
 # prepare's largest (B = 16 and 8), then the three downsamples of each
@@ -62,7 +79,7 @@ CONV = [
 ]
 
 
-def child(root: str, reps: int, only) -> None:
+def child(root: str, reps: int, only, device: bool) -> None:
     """Time every shape with the port found under ``root``; print JSON."""
     # this checkout may be on the path (PYTHONPATH, the working directory)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") != ROOT]
@@ -71,8 +88,9 @@ def child(root: str, reps: int, only) -> None:
     from live2diff_tpu_torch.ops import flash_attention as fa
     from live2diff_tpu_torch.ops import stream_attention as sa
     from live2diff_tpu_torch.ops.conv import conv3x3
+    from live2diff_tpu_torch.ops.norm import layer_norm_rows
 
-    time_ms = cold_timer(torch, reps)
+    time_ms = (device_timer if device else cold_timer)(torch, reps)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for cache in ("int8", "bf16") if only in (None, "stream") else ():
@@ -107,6 +125,19 @@ def child(root: str, reps: int, only) -> None:
         rows.append(dict(entry="smajor", shape=f"q[{b},8,{s},{d}] blocks (512, 1024)",
                          ms=time_ms(lambda: fa.flash_self_attention(q, k, v, d ** -0.5, 512,
                                                                      1024))))
+    for b, s, d in INT8 if only in (None, "int8") else ():
+        q, k, v = (torch.randn(b, s, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        bk = min(s, 4096)
+        rows.append(dict(entry="int8", shape=f"q[{b},8,{s},{d}] blocks (512, {bk})",
+                         ms=time_ms(lambda: fa.flash_self_attention_int8(q, k, v, d ** -0.5,
+                                                                          512, bk))))
+    for n, c, eps in LN if only in (None, "ln") else ():
+        x = (torch.randn(n, c, generator=gen, device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        bt = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        rows.append(dict(entry="layer_norm", shape=f"x[{n},{c}] eps {eps:g}",
+                         ms=time_ms(lambda: layer_norm_rows(x, g, bt, eps))))
     for b, h, w, cin, stride, bias, fused in CONV if only in (None, "conv") else ():
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(torch.bfloat16)
         wt = (torch.randn(64, cin, 3, 3, generator=gen, device="cuda") / (9 * cin) ** 0.5
@@ -121,9 +152,10 @@ def child(root: str, reps: int, only) -> None:
     print(json.dumps(dict(port=os.path.dirname(fa.__file__), rows=rows)))
 
 
-def run_child(root: str, reps: int, only):
+def run_child(root: str, reps: int, only, device: bool):
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root,
-                          "--reps", str(reps)] + (["--only", only] if only else []),
+                          "--reps", str(reps)] + (["--only", only] if only else [])
+                         + (["--device"] if device else []),
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise RuntimeError(f"timing {root} failed:\n{out.stdout}\n{out.stderr}")
@@ -138,17 +170,19 @@ def main() -> int:
     ap.add_argument("--other", help="another checkout of the repository, timed in turns")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the rows to this file")
-    ap.add_argument("--only", choices=("stream", "flash", "conv"))
+    ap.add_argument("--only", choices=("stream", "flash", "conv", "int8", "ln"))
+    ap.add_argument("--device", action="store_true",
+                    help="the kernels' device time by the profiler, not events")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.reps, args.only)
+        child(args.child, args.reps, args.only, args.device)
         return 0
     smi = card()
     print(smi)
     other = os.path.abspath(args.other) if args.other else None
     order = [ROOT] if not other else [ROOT, other, other, ROOT]
-    runs = [(root, run_child(root, args.reps, args.only)) for root in order]
+    runs = [(root, run_child(root, args.reps, args.only, args.device)) for root in order]
     table = []
     for i, row in enumerate(runs[0][1]):
         this = [r[i]["ms"] for root, r in runs if root == ROOT]

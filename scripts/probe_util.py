@@ -1,5 +1,6 @@
-"""What the kernel scripts share: the card's description, cold-call timing,
-and copies of a CUDA source with text edits built with the port's flags.
+"""What the kernel scripts share: the card's description, cold-call timing
+(by events, or the kernels' own device time by the profiler), and copies of
+a CUDA source with text edits built with the port's flags.
 
 Imported by ``scripts/kernel_ab.py``, ``scripts/conv_probe.py`` and
 ``scripts/stream_probe.py`` (their directory is first on ``sys.path`` when
@@ -51,6 +52,36 @@ def cold_timer(torch, reps: int):
             events.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in events) / reps
+
+    return time_ms
+
+
+def device_timer(torch, reps: int):
+    """``time_ms(fn)``: the mean device ms per call of the kernels ``fn()``
+    launches, from a torch.profiler trace of ``reps`` calls, each after the
+    same L2 overwrite as ``cold_timer`` (whose fill kernel is left out): the
+    kernels' own time, without the launch gaps that events count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+
+    def time_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in e.key:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+        if us == 0.0:
+            raise RuntimeError("the profiler recorded no device time")
+        return us / 1e3 / reps
 
     return time_ms
 

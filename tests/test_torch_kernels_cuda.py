@@ -4,15 +4,18 @@ These need an NVIDIA Hopper GPU and ``nvcc``; without a CUDA device each
 test skips. They complement ``chip_smoke.py`` (which checks the production
 shapes of the 512x512 stream step) with ragged shapes: lengths that are not
 multiples of the kernels' tiles, every head width the flash kernel takes,
-channel counts that take the conv kernel's scalar load path, row counts
-that are not a multiple of the LayerNorm kernel's 8 rows a block and
-channel counts past one warp a row (C = 2048, 2560), both cache dtypes of
+channel counts that take the conv kernel's scalar load path, LayerNorm at
+every lanes-a-row instance (8, 16 and 32 lanes, C = 328 that cannot fill its
+lanes, a block a row at C = 2048, 2560) and at row counts that take its
+grid-stride loop, both cache dtypes of
 stream attention at every production level of both rows and at ragged
 ones, on each of its routes (TMA or element staging, with and without a
 cluster), with only the sink visible, and over repeated cold launches
 that must agree bit for bit, the s-major and int8-QK flash entries on
 strided ``[B, H, S, D]`` views at lengths that are not multiples of their
 tiles (the bf16 flash entries: 128 query rows, 128 keys or 64 at D > 128),
+the int8-QK entry's pre-pass against ``quantize_groups`` bit for bit,
+repeated cold launches of the int8-QK and LayerNorm kernels bit-equal,
 the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
 counts with each activation, the conv at the edges of its 4 x 16 output
 tiles, on both input paths, with a skip aligned to 4 bytes only and over
@@ -41,7 +44,8 @@ from live2diff_tpu_torch.ops.attention import dot_product_attention, stream_wind
 from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from live2diff_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_self_attention, flash_self_attention_int8,
-    flash_self_attention_int8_plain, flash_self_attention_plain,
+    flash_self_attention_int8_plain, flash_self_attention_plain, pick_block, quantize_groups,
+    quantize_groups_cuda,
 )
 from live2diff_tpu_torch.ops.norm import (
     group_norm, group_norm_plain, layer_norm, layer_norm_plain, layer_norm_rows,
@@ -379,12 +383,16 @@ def test_stream_attention_repeated_cold_launches_agree(dev, cache, hw, c):
     assert _rel(first, stream_window_attention_plain(*plain_args)) < ATTN_TOL
 
 
-@pytest.mark.parametrize("rows", [1, 13, 577, 4616])
-@pytest.mark.parametrize("c", [16, 64, 768, 1024, 1280, 2048, 2560])
+# every lanes-a-row instance: 8 lanes (C = 16, 64, 320), 16 (640, and 328,
+# which leaves 7 of 48 vector slots idle), 32 (768, 1024, 1280) and a block
+# a row (2048, 2560); 8193 rows fill several waves at C = 320 (the
+# grid-stride loop with its prefetch)
+@pytest.mark.parametrize("rows", [1, 13, 577, 4616, 8193])
+@pytest.mark.parametrize("c", [16, 64, 320, 328, 640, 768, 1024, 1280, 2048, 2560])
 def test_layer_norm_matches_plain(dev, rows, c):
-    """The kernel (one warp a row up to C = 1280, one block a row above)
-    against the plain version; ``layer_norm`` launches it at a chosen site
-    where the JAX gate does (C % 8 == 0, at least 2^14 elements)."""
+    """The kernel (8, 16 or 32 lanes a row up to C = 1280, one block a row
+    above) against the plain version; ``layer_norm`` launches it at a chosen
+    site where the JAX gate does (C % 8 == 0, at least 2^14 elements)."""
     gen = torch.Generator(device=dev).manual_seed(rows * 10 + c)
     x = (_randn(gen, dev, rows, c) * 3.0 + 2.0).to(torch.bfloat16)
     g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
@@ -494,6 +502,11 @@ def test_flash_smajor_matches_plain(dev, b, h, s, d, block_q, block_k):
     (2, 2, 384, 80, 128, 256),    # 3 q groups, 3 k groups (pick_block: 128)
     (1, 2, 1024, 64, 512, 1024),  # 2 q groups, one k group
     (2, 1, 640, 40, 128, 640),    # 5 q groups, 640-row k group (10 tiles)
+    (1, 2, 4096, 80, 512, 4096),  # D = 80 at S = 4096: one 4096-row key group
+    (1, 1, 4096, 40, 512, 4096),  # the main width, B * H = 1
+    (1, 2, 100, 8, 512, 1024),    # S < 128, the narrowest D
+    (1, 1, 300, 160, 512, 1024),  # D = 160: 64-key tiles, 2 code chunks
+    (1, 2, 256, 128, 128, 128),   # D = 128, 2 key groups
 ])
 def test_flash_int8_matches_plain(dev, b, h, s, d, block_q, block_k):
     gen = torch.Generator(device=dev).manual_seed(s * 100 + d + 7)
@@ -512,6 +525,68 @@ def test_flash_int8_matches_plain(dev, b, h, s, d, block_q, block_k):
     # the RMS tolerance tells the int8 function from the unquantised one
     unq = flash_self_attention_plain(q, k, v, d ** -0.5, block_q, block_k)
     assert _rms(unq, ref) > 5 * VARIANT_RMS_TOL
+
+
+# the pre-pass at the four 512x512 shapes of the int8 phase (blocks 512 and
+# min(S, 4096)), at S < 128 (one group of 100 rows, no cluster), and at a
+# 1000-row key group split over a cluster of 4 CTAs of 250 rows
+@pytest.mark.parametrize("b,h,s,d,block_q,block_k", [
+    (2, 8, 4096, 40, 512, 4096), (2, 8, 1024, 80, 512, 1024),
+    (8, 8, 4096, 40, 512, 4096), (8, 8, 1024, 80, 512, 1024),
+    (1, 2, 100, 40, 512, 1024), (2, 3, 1000, 80, 1024, 1024),
+])
+def test_flash_int8_prepass_matches_quantize_groups(dev, b, h, s, d, block_q, block_k):
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q = _bhsd(gen, dev, b, s, h, d)
+    # per-channel spread, as activations have: groups with other maxima
+    k = (_randn(gen, dev, b, s, h, d) * torch.rand(1, 1, h, d, generator=gen, device=dev) * 4
+         ).to(torch.bfloat16).transpose(1, 2)
+    before = dict(_build.launch_counts)
+    q8, sq, k8, sk = quantize_groups_cuda(q, k, block_q, block_k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == before  # a check entry: no launch is counted
+    for codes, scales, x, block in ((q8, sq, q, block_q), (k8, sk, k, block_k)):
+        ref_codes, ref_scales = quantize_groups(x, pick_block(s, block))
+        assert codes.dtype == torch.int8 and codes.shape == x.shape
+        assert torch.equal(scales, ref_scales)
+        assert torch.equal(codes.float(), ref_codes)
+
+
+@pytest.mark.parametrize("b,h,s,d,block_k", [
+    (2, 8, 4096, 40, 4096), (2, 8, 1024, 80, 1024), (1, 2, 640, 40, 128),
+])
+def test_flash_int8_repeated_cold_launches_agree(dev, b, h, s, d, block_k):
+    """100 launches, each on inputs evicted from the L2, bit-equal: the
+    pre-pass's cluster meeting and the core's ring may not depend on timing."""
+    gen = torch.Generator(device=dev).manual_seed(31 + s)
+    q, k, v = (_bhsd(gen, dev, b, s, h, d) for _ in range(3))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    first = flash_self_attention_int8(q, k, v, d ** -0.5, 512, block_k)
+    differ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(100):
+        flush.fill_(1)
+        differ += (flash_self_attention_int8(q, k, v, d ** -0.5, 512, block_k) != first).any()
+    assert differ.item() == 0
+    ref = flash_self_attention_int8_plain(q, k, v, d ** -0.5, 512, block_k)
+    assert _rel(first, ref) < INT8_TOL
+
+
+@pytest.mark.parametrize("rows,c", [(577, 768), (8192, 320), (32768, 320), (1000, 2560)])
+def test_layer_norm_repeated_cold_launches_agree(dev, rows, c):
+    """200 launches, each on inputs evicted from the L2, bit-equal: sums in a
+    fixed order whatever the grid and the loop's prefetch."""
+    gen = torch.Generator(device=dev).manual_seed(rows + c)
+    x = (_randn(gen, dev, rows, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    b = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    first = layer_norm_rows(x, g, b, 1e-6)
+    differ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(200):
+        flush.fill_(1)
+        differ += (layer_norm_rows(x, g, b, 1e-6) != first).any()
+    assert differ.item() == 0
+    assert _rel(first, layer_norm_plain(x, g, b, 1e-6)) < LN_TOL
 
 
 @pytest.mark.parametrize("b,t,c,groups", [
