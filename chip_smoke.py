@@ -43,9 +43,15 @@ Phases, each printed as it ends; any failure exits non-zero:
    profiled, beside phase 4's frame times and device profile; every
    GroupNorm module whose input meets the JAX conditions launches the
    kernel once (counted by hooks on the modules over ``prepare`` and one
-   step), then the kernel is checked at each shape it saw. The pipelines
-   of phases 4, 6 and 7 then stream 30 more frames each in turn, so that
-   their frame times can be compared under the same host conditions.
+   step), and the profile holds exactly one device kernel of
+   ``group_norm.cu`` for each such call (one launch a call; a trace that
+   dropped a record is taken again, up to twice; the phase's profiled
+   launches a step are printed); every step call takes the
+   resident route (x read once). Then the kernel is checked at each shape
+   it saw, with its events and device time and its share of the bound.
+   The pipelines of phases 4, 6 and 7 then stream 30 more frames each in
+   turn, so that their frame times can be compared under the same host
+   conditions.
 8. 768x512: bench.py's second row (``--width 768 --height 512``, d-major
    flash, as bench.py runs it): 24 frames, profiled.
 9. s-major A/B: phase 8 with ``flash_variant="smajor"``: 8 frames,
@@ -170,6 +176,44 @@ def time_ms(fn, reps: int) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def device_ms(fn, reps: int, kernel: str, tries: int = 3):
+    """Mean device ms of the kernel named ``kernel`` (a part of its name)
+    that ``fn`` launches once a call, over its records in a torch.profiler
+    trace of ``reps`` calls, each after the same L2 overwrite as
+    ``time_ms``: the kernel's own time, without the launch that events
+    around a call count. Late in a long run the profiler drops a few
+    records of a trace (3-4 of 50 in this script's phase 7 on an H100); a
+    dropped record is absent, the others keep their durations, so the mean
+    is taken over the records kept. A trace that kept fewer than 80 % of
+    them is taken again, up to ``tries`` times, then "not measured" with the
+    counts seen."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(512 << 20, dtype=torch.uint8, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                _L2_FLUSH[0].fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or kernel not in e.key:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            count += e.count
+        if reps * 0.8 <= count <= reps:
+            return us / 1e3 / count
+        seen.append(count)
+    return f"not measured ({kernel} records {seen} in traces of {reps} calls)"
 
 
 def bound(nbytes: float, *ops, exps: float = 0):
@@ -571,10 +615,14 @@ GN_ACTS = {"silu": "F.silu", "relu": "torch.relu", "none": "identity"}
 
 def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
     """The GroupNorm kernel at every (B, T, C, groups, eps, act) that phase
-    7's stream step and prepare gave it, with its calls there."""
+    7's stream step and prepare gave it, with its calls there: its plan's
+    route (every step shape must be resident), its time by events and by
+    the profiler's device time, and its share of the bound."""
     import torch.nn.functional as F
 
-    from live2diff_tpu_torch.ops.norm import group_norm, group_norm_plain
+    from live2diff_tpu_torch.ops.norm import (
+        gn_device_limits, group_norm, group_norm_plain, group_norm_plan,
+    )
 
     acts = {"silu": F.silu, "relu": torch.relu, "none": lambda y: y}
     rows = []
@@ -591,16 +639,25 @@ def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
         # the same fp32 centred statistics merged in another order; one
         # bf16 rounding of the output
         err, rel = compare(out, ref, 1e-2)
+        plan = group_norm_plan(b, t, c, groups, *gn_device_limits(dev.index or 0))
+        if step_shapes.get(key, 0) and not plan.resident:
+            raise AssertionError(f"group_norm at the step shape x[{b},{t},{c}]: {plan}, "
+                                 f"not resident")
         x_cf = x.permute(0, 2, 1).contiguous()  # channels-first copy, made once
+        # x read once, y written once (bf16); ~10 fp32 operations an element
+        b_ms, b_by = bound(2 * (2 * x.numel() + 2 * c), (10 * x.numel(), "fp32"))
+        ms = time_ms(lambda: group_norm(*args), 50)
+        dev_ms = device_ms(lambda: group_norm(*args), 50, "group_norm_kernel")
         rows.append(dict(
             shape=f"x[{b},{t},{c}] G{groups} eps {eps:g} {act}",
             calls=step_shapes.get(key, 0), prepare_calls=prepare_shapes.get(key, 0),
             max_abs_err=err, rel_err=rel, tol=1e-2,
-            ms=time_ms(lambda: group_norm(*args), 50),
+            route=f"{plan.route}, {plan.ctas} CTAs x {plan.tiles_per_cta} tiles of "
+                  f"{plan.rows} rows", ms=ms, device_ms=dev_ms,
             plain_ms=time_ms(lambda: group_norm_plain(*args), 5),
-            # x read once, y written once (bf16); ~10 fp32 operations an element
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound(2 * (2 * x.numel() + 2 * c), (10 * x.numel(), "fp32")))),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_share=b_ms / ms, device_bound_share=(
+                b_ms / dev_ms if isinstance(dev_ms, float) else "not measured"),
             library_ms=time_ms(lambda: acts[act](F.group_norm(x_cf, groups, g, bt, eps)), 50),
             library=f"F.group_norm + {GN_ACTS[act]} on a channels-first copy (copy not timed)",
         ))
@@ -751,10 +808,11 @@ def group_norm_recorder(torch, modules):
     """Forward pre-hooks on every FusedGroupNorm of ``modules`` that log
     (B, T, C, groups, eps, act) of each call meeting the JAX package's
     kernel conditions (``live2diff_tpu/ops/norm.py:140-147``: T * C <=
-    3 * 2^20, C % groups == 0, C % 8 == 0). Returns (log, remove)."""
+    3 * 2^20, C % groups == 0, C % 8 == 0) and the kernel's widest row
+    (C <= GN_MAX_CHANNELS, wider than any model's). Returns (log, remove)."""
     from live2diff_tpu_torch.models.layers import FusedGroupNorm
     from live2diff_tpu_torch.models.resnet import InflatedGroupNorm
-    from live2diff_tpu_torch.ops.norm import GN_MAX_ELEMS
+    from live2diff_tpu_torch.ops.norm import GN_MAX_CHANNELS, GN_MAX_ELEMS
 
     log = []
 
@@ -764,7 +822,8 @@ def group_norm_recorder(torch, modules):
         # InflatedGroupNorm folds its frame axis into the batch
         n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
         t = x.numel() // (n * c)
-        if t * c <= GN_MAX_ELEMS and c % mod.num_groups == 0 and c % 8 == 0:
+        if (t * c <= GN_MAX_ELEMS and c % mod.num_groups == 0 and c % 8 == 0
+                and c <= GN_MAX_CHANNELS):
             log.append((n, t, c, mod.num_groups, mod.eps, mod.act))
 
     handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
@@ -807,7 +866,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     once for each of them. ``keep``, a list, gets the stream, its state and
     the frames, for ``interleaved``."""
     from live2diff_tpu_torch.builder import build_pipeline
-    from live2diff_tpu_torch.ops import stream_attention
+    from live2diff_tpu_torch.ops import norm, stream_attention
 
     dev = torch.device("cuda")
     gc.collect()  # an earlier phase's pipeline, freed before this one is built
@@ -870,6 +929,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
 
     _build.reset_launch_counts()
     routes_before = dict(stream_attention.route_counts)
+    gn_routes_before = dict(norm.gn_route_counts)
     times, outs = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
@@ -882,6 +942,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
             raise AssertionError(f"frame {i}: non-finite latents")
     counts = dict(_build.launch_counts)
     routes = {k: v - routes_before[k] for k, v in stream_attention.route_counts.items()}
+    gn_routes = {k: v - gn_routes_before[k] for k, v in norm.gn_route_counts.items()}
     peak_stream = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (height, width, 3) or out.dtype != torch.uint8:
@@ -912,6 +973,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         launches_stream=counts,
         launches_per_step={k: v / n_frames for k, v in counts.items()},
         stream_attention_routes_per_step={k: v / n_frames for k, v in routes.items()},
+        group_norm_routes_per_step={k: v / n_frames for k, v in gn_routes.items()},
     )
     if record_gn:
         result["group_norm_shapes"] = (logged_step["group_norm"], logged_prepare["group_norm"])
@@ -976,8 +1038,9 @@ def raw_depth_stats(torch, stream, frames):
 
 def profile_device(torch, call, n):
     """torch.profiler over ``n`` calls of ``call()``: device time and kernel
-    launches per call by kernel name, and the device-busy share of the wall
-    time (which the profiler's own host overhead lowers)."""
+    launches per call by kernel name (and those of ``csrc/group_norm.cu``'s
+    kernel), and the device-busy share of the wall time (which the
+    profiler's own host overhead lowers)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -997,10 +1060,12 @@ def profile_device(torch, call, n):
             rows.append((dev_us / 1e3 / n, e.count / n, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    group_norm_kernels = sum(r[1] for r in rows if "group_norm_kernel" in r[2])
     return dict(
         calls=n, wall_ms_per_call=wall_ms,
         device_ms_per_call=device_ms if rows else "not measured",
         kernels_per_call=sum(r[1] for r in rows) if rows else "not measured",
+        group_norm_kernels_per_call=group_norm_kernels if rows else "not measured",
         device_busy_share=device_ms / wall_ms if rows else "not measured",
         top=[dict(ms_per_call=r[0], launches_per_call=r[1], name=r[2][:90]) for r in rows[:25]],
     )
@@ -1036,6 +1101,8 @@ def print_rows(k) -> None:
                       f"{r['prepare_calls_ln_all']} in prepare")
         if "route" in r:
             extra += f" route ({r['route']}) share of bound {r['bound_share']:.3f}"
+        if "device_ms" in r:
+            extra += f" device ms {r['device_ms']} (share of bound {r['device_bound_share']})"
         print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}){extra} "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library {r['library_ms']}")
@@ -1204,8 +1271,30 @@ def main() -> int:
                                    kv_cache_dtype="int8", gn_kernel_sites="all")
     gn_step, gn_prepare = result.pop("group_norm_shapes")
     report_stream(result)
-    print(f"group_norm launches: {counts_gn['group_norm'] / GN_FRAMES} a step (one per "
+    gn_per_step = counts_gn["group_norm"] / GN_FRAMES
+    print(f"group_norm launches: {gn_per_step} a step (one per "
           f"GroupNorm call meeting the kernel conditions), {sum(gn_prepare.values())} in prepare")
+    # one device kernel a call, by the profile (a long trace may drop a
+    # record: up to two more traces of the same stream, none may hold more
+    # than one a call and one must hold exactly one); every step call resident
+    prof = result["profile"]
+    gn_kernels = [prof["group_norm_kernels_per_call"]]
+    stream7, state7, frames7 = kept[-1]
+    while (isinstance(prof["kernels_per_call"], float) and gn_kernels[-1] != gn_per_step
+           and len(gn_kernels) < 3):
+        gn_kernels.append(profile_steps(torch, stream7, state7, frames7[4:8])
+                          ["group_norm_kernels_per_call"])
+    print(f"profiled launches a stream step: {prof['kernels_per_call']} with the GroupNorm "
+          f"kernel at every site, {main_path['kernels_per_step']} on the main path; "
+          f"group_norm.cu kernels a step {gn_kernels} (traces taken); "
+          f"routes a step {json.dumps(result['group_norm_routes_per_step'])}")
+    if isinstance(prof["kernels_per_call"], float) and (
+            gn_per_step not in gn_kernels or max(gn_kernels) > gn_per_step):
+        raise AssertionError(f"GroupNorm: {gn_kernels} group_norm.cu device kernels a step in "
+                             f"the profiles, {gn_per_step} calls")
+    if result["group_norm_routes_per_step"]["streamed"]:
+        raise AssertionError(f"GroupNorm: a stream step's call was not resident: "
+                             f"{result['group_norm_routes_per_step']}")
     print(f"beside phase 4: {json.dumps({'main path': main_path, 'GN kernel': headline(result)})}")
     del result
     ab = interleaved(torch, dict(zip(("main path", "int8 QK", "GN kernel"), kept)),
@@ -1214,7 +1303,13 @@ def main() -> int:
     kept.clear()
     gn_entry = summarise("group_norm", src + "group_norm.cu", "live2diff_tpu/ops/norm.py:123",
                          check_group_norm(torch, gen, dev, gn_step, gn_prepare))
+    dev_times = [r["device_ms"] for r in gn_entry["shapes"]]
+    gn_entry["device_ms_per_step"] = (
+        sum(r["calls"] * r["device_ms"] for r in gn_entry["shapes"])
+        if all(isinstance(t, float) for t in dev_times) else "not measured")
     print_rows(gn_entry)
+    print(f"group_norm per stream step: device ms {gn_entry['device_ms_per_step']} "
+          f"(events {gn_entry['ms']}, bound {gn_entry['bound_ms']}) ({smi})")
     kernels.append(gn_entry)
 
     phase("768x512 at full width: bench.py's second row (d-major flash, as bench.py runs it)")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Per-call device time of the port's stream attention, flash entries, fused convs and LayerNorm, on one GPU.
+"""Per-call device time of the port's attention, conv and norm kernels, on one GPU.
 
     python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH]
-                                 [--only stream|flash|conv|int8|ln] [--device]
+                                 [--only stream|flash|conv|int8|ln|gn] [--device]
 
 Times both stream-attention entries (kernels #1 and #2, int8 and bf16
 cache) at the four UNet levels of the 512x512 and of the 768x512 stream
@@ -14,8 +14,10 @@ of ``chip_smoke.py``'s phase 2 (the 512x512 and 768x512 steps and
 ``prepare``), ``flash_self_attention_int8`` (kernel #5) at its eight phase-2
 shapes (phase 6's and the 768x512 step's), and ``layer_norm_rows`` (kernel
 #9) at phase 4's ViT shapes and the UNet's shapes of phase 10
-(``ln_kernel_sites="all"``), with CUDA events, the L2 cache overwritten
-before each call. With
+(``ln_kernel_sites="all"``), and ``group_norm`` (kernel #8) at the 22
+shapes of a 512x512 stream step with ``gn_kernel_sites="all"`` and
+prepare's largest, with CUDA events, the L2 cache overwritten before each
+call. With
 ``--other DIR`` (another checkout of the repository, for example a parent
 commit unpacked with ``git archive``) both trees are timed on the same card
 in turns: this tree, the other, the other, this tree, each in a process of
@@ -63,6 +65,21 @@ INT8 = [(2, 4096, 40), (2, 1024, 80), (8, 4096, 40), (8, 1024, 80), (2, 6144, 40
 LN = [(577, 768, 1e-6), (4616, 768, 1e-6), (8192, 320, 1e-5), (2048, 640, 1e-5),
       (512, 1280, 1e-5), (128, 1280, 1e-5), (32768, 320, 1e-5), (8192, 640, 1e-5),
       (2048, 1280, 1e-5)]
+# (B, T, C, act) of GroupNorm (32 groups): the UNet's calls of a 512x512
+# step (B = 2 denoising steps; the act of most calls at each shape), the
+# DPT's (B = 1), then prepare's five largest (the 8 warmup frames in B)
+GN = [
+    (2, 4096, 320, "none"), (2, 4096, 640, "silu"), (2, 1024, 320, "silu"),
+    (2, 1024, 640, "none"), (2, 1024, 960, "silu"), (2, 1024, 1280, "silu"),
+    (2, 1024, 1920, "silu"), (2, 256, 640, "silu"), (2, 256, 1280, "none"),
+    (2, 256, 1920, "silu"), (2, 256, 2560, "silu"), (2, 64, 1280, "silu"),
+    (2, 64, 2560, "silu"), (1, 576, 256, "relu"), (1, 576, 1024, "none"),
+    (1, 2304, 128, "relu"), (1, 2304, 256, "relu"), (1, 2304, 512, "none"),
+    (1, 9216, 64, "relu"), (1, 9216, 128, "relu"), (1, 9216, 256, "none"),
+    (1, 36864, 64, "relu"),
+    (8, 4096, 640, "silu"), (8, 1024, 1920, "silu"), (8, 36864, 64, "relu"),
+    (8, 9216, 256, "none"), (8, 4096, 320, "silu"),
+]
 # (B, H, W, Cin, stride, bias, skip and ReLU) of the fused conv: the encoder
 # (B = 2) and decoder (B = 1) levels of the 512x512 and 768x512 steps,
 # prepare's largest (B = 16 and 8), then the three downsamples of each
@@ -88,7 +105,7 @@ def child(root: str, reps: int, only, device: bool) -> None:
     from live2diff_tpu_torch.ops import flash_attention as fa
     from live2diff_tpu_torch.ops import stream_attention as sa
     from live2diff_tpu_torch.ops.conv import conv3x3
-    from live2diff_tpu_torch.ops.norm import layer_norm_rows
+    from live2diff_tpu_torch.ops.norm import group_norm, layer_norm_rows
 
     time_ms = (device_timer if device else cold_timer)(torch, reps)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -138,6 +155,13 @@ def child(root: str, reps: int, only, device: bool) -> None:
         bt = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
         rows.append(dict(entry="layer_norm", shape=f"x[{n},{c}] eps {eps:g}",
                          ms=time_ms(lambda: layer_norm_rows(x, g, bt, eps))))
+    for b, t, c, act in GN if only in (None, "gn") else ():
+        x = (torch.randn(b, t, c, generator=gen, device="cuda") * 3.0 + 2.0).to(torch.bfloat16)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        bt = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        rows.append(dict(entry="group_norm", shape=f"x[{b},{t},{c}] G32 {act}",
+                         ms=time_ms(lambda: group_norm(x, g, bt, 32, 1e-5, act))))
+        del x
     for b, h, w, cin, stride, bias, fused in CONV if only in (None, "conv") else ():
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(torch.bfloat16)
         wt = (torch.randn(64, cin, 3, 3, generator=gen, device="cuda") / (9 * cin) ** 0.5
@@ -170,7 +194,7 @@ def main() -> int:
     ap.add_argument("--other", help="another checkout of the repository, timed in turns")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the rows to this file")
-    ap.add_argument("--only", choices=("stream", "flash", "conv", "int8", "ln"))
+    ap.add_argument("--only", choices=("stream", "flash", "conv", "int8", "ln", "gn"))
     ap.add_argument("--device", action="store_true",
                     help="the kernels' device time by the profiler, not events")
     ap.add_argument("--child", help=argparse.SUPPRESS)

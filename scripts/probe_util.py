@@ -60,7 +60,9 @@ def device_timer(torch, reps: int):
     """``time_ms(fn)``: the mean device ms per call of the kernels ``fn()``
     launches, from a torch.profiler trace of ``reps`` calls, each after the
     same L2 overwrite as ``cold_timer`` (whose fill kernel is left out): the
-    kernels' own time, without the launch gaps that events count."""
+    kernels' own time, without the launch gaps that events count. A trace
+    whose kernel records are not a whole number a call (the profiler drops
+    a record now and then) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
@@ -68,20 +70,22 @@ def device_timer(torch, reps: int):
     def time_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.fill_(1)
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in e.key:
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-        if us == 0.0:
-            raise RuntimeError("the profiler recorded no device time")
-        return us / 1e3 / reps
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush.fill_(1)
+                    fn()
+                torch.cuda.synchronize()
+            us, count = 0.0, 0
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in e.key:
+                    continue
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                count += e.count
+            if count and count % reps == 0:
+                return us / 1e3 / reps
+        raise RuntimeError("the profiler lost kernel records in three traces running")
 
     return time_ms
 

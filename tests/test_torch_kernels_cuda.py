@@ -17,7 +17,10 @@ tiles (the bf16 flash entries: 128 query rows, 128 keys or 64 at D > 128),
 the int8-QK entry's pre-pass against ``quantize_groups`` bit for bit,
 repeated cold launches of the int8-QK and LayerNorm kernels bit-equal,
 the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
-counts with each activation, the conv at the edges of its 4 x 16 output
+counts with each activation, at C = 4096 with 512 groups, C / G < 8, its
+widest row and its streamed route, over repeated cold launches that must
+agree bit for bit, as one device kernel a call and replayed from a CUDA
+graph, the conv at the edges of its 4 x 16 output
 tiles, on both input paths, with a skip aligned to 4 bytes only and over
 repeated launches on inputs evicted from the L2, and the wrappers'
 refusals. Run them on the card, from the repository root:
@@ -36,6 +39,8 @@ what leaving out the int8 quantisation changes (~1e-2).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import pytest
 import torch
 
@@ -47,8 +52,10 @@ from live2diff_tpu_torch.ops.flash_attention import (
     flash_self_attention_int8_plain, flash_self_attention_plain, pick_block, quantize_groups,
     quantize_groups_cuda,
 )
+from live2diff_tpu_torch.ops.choices import KernelChoices
 from live2diff_tpu_torch.ops.norm import (
-    group_norm, group_norm_plain, layer_norm, layer_norm_plain, layer_norm_rows,
+    gn_device_limits, gn_route_counts, group_norm, group_norm_act, group_norm_plain,
+    group_norm_plan, layer_norm, layer_norm_plain, layer_norm_rows,
 )
 from live2diff_tpu_torch.ops.stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
@@ -589,9 +596,17 @@ def test_layer_norm_repeated_cold_launches_agree(dev, rows, c):
     assert _rel(first, layer_norm_plain(x, g, b, 1e-6)) < LN_TOL
 
 
+# ragged row counts across tile edges (4097, 333, 1000 rows), B = 3 and 16,
+# C = 4096 with 512 groups and with 32, C / G < 8 (a 16-byte vector spans
+# groups), T * C at exactly 3 * 2^20, the widest row (GN_MAX_CHANNELS, with
+# one channel a group), and prepare's [8, 4096, 640], whose tiles do not all
+# fit (the streamed route)
 @pytest.mark.parametrize("b,t,c,groups", [
     (2, 1000, 64, 32), (1, 37, 320, 32), (3, 4097, 320, 32), (2, 64, 1280, 32),
     (1, 129, 2560, 32), (2, 50, 24, 4),
+    (1, 64, 4096, 512), (1, 512, 4096, 32), (2, 50, 64, 16), (16, 64, 320, 32),
+    (2, 4096, 768, 32), (8, 4096, 640, 32), (3, 333, 1280, 32), (1, 4097, 640, 32),
+    (1, 40, 16384, 16384), (1, 300, 16384, 32),
 ])
 @pytest.mark.parametrize("act,eps", [("none", 1e-5), ("silu", 1e-6), ("relu", 1e-5)])
 def test_group_norm_matches_plain(dev, b, t, c, groups, act, eps):
@@ -599,12 +614,99 @@ def test_group_norm_matches_plain(dev, b, t, c, groups, act, eps):
     x = (_randn(gen, dev, b, t, c) * 3.0 + 2.0).to(torch.bfloat16)
     g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
     bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
-    before = _build.launch_counts["group_norm"]
+    before, routes = _build.launch_counts["group_norm"], dict(gn_route_counts)
     out = group_norm(x, g, bt, groups, eps, act)
     torch.cuda.synchronize()
     assert _build.launch_counts["group_norm"] == before + 1
+    plan = group_norm_plan(b, t, c, groups, *gn_device_limits(0))
+    assert gn_route_counts[plan.route] == routes[plan.route] + 1
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     assert _rel(out, group_norm_plain(x, g, bt, groups, eps, act)) < GN_TOL
+
+
+def test_group_norm_takes_every_shape_the_jax_gate_sends_it(dev):
+    """group_norm_act at C = 4096 with 512 groups (the JAX gate takes it,
+    the kernel before this design refused it) launches the kernel; past the
+    kernel's widest row it runs the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    kernels = KernelChoices(gn_kernel_sites="all")
+    for c, groups, launched in ((4096, 512, 1), (16392, 8, 0)):
+        x = (_randn(gen, dev, 1, 64, c) * 3.0 + 2.0).to(torch.bfloat16)
+        g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+        bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+        before = _build.launch_counts["group_norm"]
+        out = group_norm_act(x, g, bt, groups, 1e-5, "silu", site="resnet", kernels=kernels)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["group_norm"] == before + launched
+        assert _rel(out, group_norm_plain(x, g, bt, groups, 1e-5, "silu")) < GN_TOL
+
+
+@pytest.mark.parametrize("b,t,c,groups", [
+    (2, 4096, 320, 32), (1, 576, 256, 32), (1, 64, 4096, 512), (8, 4096, 640, 32),
+])
+def test_group_norm_repeated_cold_launches_agree(dev, b, t, c, groups):
+    """200 launches, each on inputs evicted from the L2, bit-equal: the CTAs
+    of a sample merge its tile partials in a fixed order whatever order
+    they arrive in."""
+    gen = torch.Generator(device=dev).manual_seed(b + t + c)
+    x = (_randn(gen, dev, b, t, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    first = group_norm(x, g, bt, groups, 1e-5, "silu")
+    differ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(200):
+        flush.fill_(1)
+        differ += (group_norm(x, g, bt, groups, 1e-5, "silu") != first).any()
+    assert differ.item() == 0
+    assert _rel(first, group_norm_plain(x, g, bt, groups, 1e-5, "silu")) < GN_TOL
+
+
+@pytest.mark.parametrize("b,t,c", [(2, 4096, 320), (1, 576, 256), (8, 4096, 640)])
+def test_group_norm_is_one_device_kernel_a_call(dev, b, t, c):
+    """A torch.profiler trace of 10 calls holds 10 device kernels, all the
+    GroupNorm kernel: no memset, no second or third launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(c)
+    x = _randn(gen, dev, b, t, c).to(torch.bfloat16)
+    g = torch.ones(c, device=dev, dtype=torch.bfloat16)
+    group_norm(x, g, g, 32, 1e-5, "relu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            group_norm(x, g, g, 32, 1e-5, "relu")
+        torch.cuda.synchronize()
+    kernels = Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] += e.count
+    assert sum(kernels.values()) == 10, kernels
+    assert all("group_norm_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("b,t,c,groups", [(2, 1024, 640, 32), (8, 4096, 640, 32)])
+def test_group_norm_replays_in_a_cuda_graph(dev, b, t, c, groups):
+    """One call captured in a CUDA graph and replayed 3 times equals the
+    eager call bit for bit: the grid's meeting needs nothing from the host."""
+    gen = torch.Generator(device=dev).manual_seed(t + c)
+    x = (_randn(gen, dev, b, t, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    eager = group_norm(x, g, bt, groups, 1e-5, "silu")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        group_norm(x, g, bt, groups, 1e-5, "silu")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group_norm(x, g, bt, groups, 1e-5, "silu")
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -625,3 +727,6 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = torch.ones(64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # C % groups != 0
         group_norm(torch.zeros(1, 4, 64, device=dev, dtype=torch.bfloat16), g, g, 24)
+    g = torch.ones(16392, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # C > GN_MAX_CHANNELS: group_norm_act's gate sends it plain
+        group_norm(torch.zeros(1, 4, 16392, device=dev, dtype=torch.bfloat16), g, g, 8)

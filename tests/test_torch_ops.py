@@ -12,6 +12,8 @@ the head reduction through a mask matmul).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -472,28 +474,120 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
-@pytest.mark.parametrize("sites,site,t,c,taken", [
-    ("all", "midas", 64, 256, True),
-    ({"resnet"}, "resnet", 64, 320, True),
-    ({"resnet"}, "attn_in", 64, 320, False),         # site not chosen
-    (frozenset(), "resnet", 64, 320, False),         # the default: no site
-    ("all", "resnet", 4096, 960, False),             # T * C > 3 * 2^20
-    ("all", "resnet", 16, 36, False),                # C % 8 != 0
+@pytest.mark.parametrize("sites,site,t,c,taken,groups", [
+    pytest.param("all", "midas", 64, 256, True, 4, id="all-midas-64-256-True"),
+    pytest.param({"resnet"}, "resnet", 64, 320, True, 4, id="sites1-resnet-64-320-True"),
+    # site not chosen
+    pytest.param({"resnet"}, "attn_in", 64, 320, False, 4, id="sites2-attn_in-64-320-False"),
+    # the default: no site
+    pytest.param(frozenset(), "resnet", 64, 320, False, 4, id="sites3-resnet-64-320-False"),
+    # T * C > 3 * 2^20
+    pytest.param("all", "resnet", 4096, 960, False, 4, id="all-resnet-4096-960-False"),
+    pytest.param("all", "resnet", 16, 36, False, 4, id="all-resnet-16-36-False"),  # C % 8
+    # wider than the UNet's 2560, any G dividing C: the kernel
+    pytest.param("all", "resnet", 64, 4096, True, 32, id="all-resnet-64-4096-True-32"),
+    pytest.param("all", "resnet", 64, 4096, True, 512, id="all-resnet-64-4096-True-512"),
+    # wider than the kernel's row (GN_MAX_CHANNELS): the plain version
+    pytest.param("all", "resnet", 64, 16392, False, 8, id="all-resnet-64-16392-False-8"),
 ])
-def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken):
+def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups):
     """The kernel runs where the JAX package's conditions hold
-    (norm.py:140-147) and the pipeline names the site."""
+    (norm.py:140-147), C fits the kernel and the pipeline names the site."""
     calls = []
     real = tnorm.group_norm
     monkeypatch.setattr(tnorm, "group_norm",
                         lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
     rs = np.random.RandomState(17)
     x = T(rs.randn(1, t, c).astype(np.float32))
-    out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=4, act="silu",
+    out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=groups, act="silu",
                                site=site, kernels=KernelChoices(gn_kernel_sites=sites))
     assert len(calls) == int(taken)
-    torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c), 4,
-                                                           1e-5, "silu"))
+    torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c),
+                                                           groups, 1e-5, "silu"))
+
+
+@pytest.mark.parametrize("t,c,groups,jax_takes", [
+    (64, 320, 32, True),
+    (64, 4096, 32, True),      # wider than any model's GroupNorm
+    (64, 4096, 512, True),     # more than 256 groups
+    (64, 64, 16, True),        # C / G = 4 < 8: a vector spans groups
+    (64, 16392, 8, True),      # C > GN_MAX_CHANNELS: JAX's kernel, the port's plain version
+    (4096, 960, 32, False),    # T * C > 3 * 2^20
+    (16, 36, 4, False),        # C % 8 != 0
+])
+def test_group_norm_gate_matches_jax(monkeypatch, t, c, groups, jax_takes):
+    """group_norm_act sends a call to its kernel wherever the JAX package
+    sends it to the Pallas kernel (norm.py:140-147, run in interpret mode)
+    and the row fits the kernel; past GN_MAX_CHANNELS the route differs but
+    the result does not."""
+    monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
+    monkeypatch.setattr(jattn, "_BACKEND", "tpu")
+    jax_calls, port_calls = [], []
+    real_j, real_t = jnorm._group_norm_kernel, tnorm.group_norm
+    monkeypatch.setattr(jnorm, "_group_norm_kernel",
+                        lambda *a, **kw: (jax_calls.append(1), real_j(*a, **kw))[1])
+    monkeypatch.setattr(tnorm, "group_norm",
+                        lambda *a, **kw: (port_calls.append(1), real_t(*a, **kw))[1])
+    rs = np.random.RandomState(19)
+    x = (rs.randn(1, t, c) * 3 + 1).astype(np.float32)
+    g, bt = (1 + 0.1 * rs.randn(c)).astype(np.float32), (0.1 * rs.randn(c)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jnorm.group_norm_act(*map(jnp.asarray, (x, g, bt)), groups=groups, eps=1e-5,
+                                   act="silu", site="resnet")
+    out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=groups, eps=1e-5, act="silu",
+                               site="resnet", kernels=KernelChoices(gn_kernel_sites="all"))
+    assert len(jax_calls) == int(jax_takes)
+    assert len(port_calls) == int(jax_takes and c <= tnorm.GN_MAX_CHANNELS)
+    assert rel_err(out.numpy(), ref) < 1e-5
+
+
+H100_SMS, H100_SMEM = 132, 232448  # SMs, shared memory a block may opt into
+# the GroupNorm calls of a 512x512 stream step at gn_kernel_sites="all"
+# ([B, T, C]): the UNet's at B = 2 denoising steps, the DPT's at B = 1
+GN_STEP_SHAPES = [
+    (2, 4096, 320), (2, 4096, 640), (2, 1024, 320), (2, 1024, 640), (2, 1024, 960),
+    (2, 1024, 1280), (2, 1024, 1920), (2, 256, 640), (2, 256, 1280), (2, 256, 1920),
+    (2, 256, 2560), (2, 64, 1280), (2, 64, 2560), (1, 576, 256), (1, 576, 1024),
+    (1, 2304, 128), (1, 2304, 256), (1, 2304, 512), (1, 9216, 64), (1, 9216, 128),
+    (1, 9216, 256), (1, 36864, 64),
+]
+
+
+@pytest.mark.parametrize("b,t,c,groups", [
+    *[(*shape, 32) for shape in GN_STEP_SHAPES],
+    # prepare: the UNet over the 8 warmup frames folded into B, the DPT over them
+    (8, 4096, 320, 32), (8, 4096, 640, 32), (8, 1024, 1920, 32), (8, 256, 2560, 32),
+    (8, 576, 256, 32), (8, 9216, 256, 32), (8, 36864, 64, 32),
+    (1, 1, 8, 1), (1, 4097, 320, 32), (3, 333, 1280, 32), (16, 64, 320, 32),
+    (1, 64, 4096, 512), (1000, 64, 320, 32), (1, 8, 16384, 16384),
+])
+def test_group_norm_plan(b, t, c, groups):
+    """The kernel's plan on an H100: every row of every sample in exactly one
+    tile, no tile across two samples, runs of tiles per CTA, at most one CTA
+    an SM, the buffers within shared memory, few CTAs for small slabs, and
+    every stream-step call resident (x read once)."""
+    plan = tnorm.group_norm_plan(b, t, c, groups, H100_SMS, H100_SMEM)
+    tiles = list(plan.tiles(b, t))
+    assert len(tiles) == b * plan.tiles_per_sample
+    for s in range(b):
+        spans = [(r0, r1) for _, ts, r0, r1 in tiles if ts == s]
+        assert spans[0][0] == 0 and spans[-1][1] == t
+        assert all(r0 < r1 and r1 == nxt for (r0, r1), (nxt, _) in zip(spans, spans[1:] + [(t, 0)]))
+    assert max(r1 - r0 for _, _, r0, r1 in tiles) == plan.rows
+    ctas = [cta for cta, _, _, _ in tiles]
+    assert ctas == sorted(ctas) and set(ctas) == set(range(plan.ctas))
+    assert max(Counter(ctas).values()) == plan.tiles_per_cta
+    assert plan.ctas <= H100_SMS
+    assert plan.smem_bytes <= H100_SMEM and 1 <= plan.slots <= plan.tiles_per_cta
+    slab = b * t * 2 * c
+    assert plan.ctas <= max(1, slab // tnorm.GN_MIN_TILE_BYTES)
+    assert plan.ctas >= min(H100_SMS, slab // tnorm.GN_MIN_TILE_BYTES, b * t) // 2
+    if (b, t, c) in GN_STEP_SHAPES:
+        assert plan.resident and plan.tiles_per_cta == 1
+    if plan.tiles_per_cta > 1 and plan.rows > 1:
+        assert plan.slots >= 2  # the next tile's copy in flight while one is reduced
+    if (b, t, c) == (1, 576, 256):
+        assert plan.ctas <= 18
 
 
 def test_kernel_choices_validate():
