@@ -30,12 +30,19 @@ Phases, each printed as it ends; any failure exits non-zero:
    then streamed frames, timed and profiled; every kernel's launches in
    ``prepare`` and per stream step are asserted (stream attention's by
    route too: on a 132-SM card 40 on TMA, 30 of them in clusters), and the
-   profiled launches a step may not exceed 7,265. Prints the host time the
+   profiled launches a step may not exceed 7,265. The stream step is a
+   CUDA graph, captured at the first frame and replayed at every frame, so
+   in phases 4-10 a step's launches are asserted twice: (a) the wrappers'
+   counts over the capture, which are one step's (the replays add none),
+   and (b) each wrapper's device kernels by name in the profile of a few
+   replays, per step (a trace that dropped a record is taken again, up to
+   twice). The first call's time (capture and one replay) is reported
+   apart from the steady frames. Prints the host time the
    flash kernels, the conv and stream attention spend encoding TMA tensor
    maps, per call.
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
-   model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames, with
-   the bf16 stream-attention kernel's launches asserted.
+   model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames,
+   profiled, with the bf16 stream-attention kernel's launches asserted.
 6. int8 QK: phase 4 with ``flash_variant="int8"`` (bench.py's
    ``--spatial-qk int8``): 32 frames, profiled; the int8-QK flash kernel
    takes the 10 self-attentions a step that pass the flash gate.
@@ -44,9 +51,8 @@ Phases, each printed as it ends; any failure exits non-zero:
    GroupNorm module whose input meets the JAX conditions launches the
    kernel once (counted by hooks on the modules over ``prepare`` and one
    step), and the profile holds exactly one device kernel of
-   ``group_norm.cu`` for each such call (one launch a call; a trace that
-   dropped a record is taken again, up to twice; the phase's profiled
-   launches a step are printed); every step call takes the
+   ``group_norm.cu`` for each such call (one launch a call; the phase's
+   profiled launches a step are printed); every step call takes the
    resident route (x read once). Then the kernel is checked at each shape
    it saw, with its events and device time and its share of the bound.
    The pipelines of phases 4, 6 and 7 then stream 30 more frames each in
@@ -58,10 +64,25 @@ Phases, each printed as it ends; any failure exits non-zero:
    profiled; the s-major flash kernel takes the 10 gated self-attentions a
    step, at S = 6144 and 1536.
 10. LayerNorm kernel at every site (``ln_kernel_sites="all"``, the UNet's
-   C = 320-1280 LayerNorms with it): ``prepare`` and 4 frames at 512x512;
-   every LayerNorm whose input meets the JAX conditions launches the kernel
-   once (counted by hooks, which log its shapes); then the kernel is
-   checked against its plain version at each of those shapes.
+   C = 320-1280 LayerNorms with it): ``prepare`` and 4 frames at 512x512,
+   profiled; every LayerNorm whose input meets the JAX conditions launches
+   the kernel once (counted by hooks, which log its shapes); then the
+   kernel is checked against its plain version at each of those shapes.
+11. captured step, at the main path's configuration: 24 replays of the
+   captured step on one state against the eager ``_frame_step`` on a twin
+   state from the same seed (through window fill and eviction), bit for
+   bit: every uint8 output, x_t_buffer, depth_buffer, the window tensors
+   and every KV cache (data and scales); then the same with a bf16 cache
+   at phase 5's configuration. The first call's time, the capture time and
+   each stream's peak device memory net of the start; the captured and
+   eager steps in turns for 30 rounds (frame p50, p90, rounds won) with
+   each one's device time a step and share of the frame; ``stream_burst``
+   of 10 frames against 10 replays, each way round, bit for bit (a second
+   state's capture timed); ``PipelinedStream.map`` over 32 uint8 host
+   frames (``max_in_flight=2``) against the synchronous loop, bit for bit,
+   with its ``throughput_fps``; and three ``prepare()``-and-stream cycles
+   that must leave device memory within one state's tensors of the first
+   cycle, with at most one graph alive.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -73,6 +94,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +113,21 @@ SFU_RATE = []  # [exp / s], set once the card is known
 MAIN_PATH_LAUNCHES_PER_STEP = 7265
 # stream-attention launches a main-path step by route (132 SMs)
 MAIN_PATH_ROUTES = {"tma": 40, "scalar": 0, "cluster": 30}
+
+# the device kernels of each wrapper launch in the profile, by patterns of
+# the profiler's kernel names: one of each a launch (the int8-QK flash entry
+# launches its pre-pass and the flash core)
+DEVICE_KERNELS = {
+    "stream_attention_int8": (r"stream_attention_kernel<signed char,",),
+    "stream_attention_bf16": (r"stream_attention_kernel<__nv_bfloat16,",),
+    "flash_attention": (r"flash_sm90_kernel<\d+, false, false>",),
+    "flash_attention_smajor": (r"flash_sm90_kernel<\d+, true, false>",),
+    "flash_attention_int8": (r"flash_sm90_kernel<\d+, true, true>", r"quantise_kernel\("),
+    "conv3x3": (r"conv3x3_sm90<1, ",),
+    "conv3x3_s2": (r"conv3x3_sm90<2, ",),
+    "layer_norm": (r"layer_norm_kernel<",),
+    "group_norm": (r"group_norm_kernel<",),
+}
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
 TF32_OFF = "torch.backends.cudnn.allow_tf32 = False; torch.backends.cuda.matmul.allow_tf32 = False"
@@ -854,17 +891,21 @@ def layer_norm_recorder(torch, modules):
     return log, lambda: [h.remove() for h in handles]
 
 
-def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile,
+def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
                height=512, width=512, record_gn=False, record_ln=False, keep=None,
                **build_kw):
     """build_pipeline at full width, prepare, then ``n_frames`` frames, each
-    timed on the host clock to a synchronize; launch counts are zeroed just
-    before prepare and before the frames, and asserted just after each.
-    With ``record_gn`` (``record_ln``) the GroupNorm (LayerNorm) calls that
-    meet the kernel conditions are logged over prepare and the (untimed)
-    warm step, and ``group_norm`` (``layer_norm``) is expected to launch
-    once for each of them. ``keep``, a list, gets the stream, its state and
-    the frames, for ``interleaved``."""
+    timed on the host clock to a synchronize. The first frame captures the
+    step in a CUDA graph; every frame replays it. Launch counts are zeroed
+    just before prepare and before the frames, and asserted just after
+    prepare and after the first frame (the capture: one step), and again
+    after the last (replays launch nothing through the wrappers); then the
+    device kernels of each wrapper are asserted per step in the profile of
+    a few replays. With ``record_gn`` (``record_ln``) the GroupNorm
+    (LayerNorm) calls that meet the kernel conditions are logged over
+    prepare and the (untimed) warm step, and ``group_norm``
+    (``layer_norm``) is expected to launch once for each of them. ``keep``,
+    a list, gets the stream, its state and the frames, for ``interleaved``."""
     from live2diff_tpu_torch.builder import build_pipeline
     from live2diff_tpu_torch.ops import norm, stream_attention
 
@@ -917,7 +958,8 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     check_counts("prepare", warm_counts, expected_prepare, 1)
     peak_prepare = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    # the warm step runs on a throwaway state: a second set of KV caches
+    # the warm step runs on a throwaway state (a second set of KV caches),
+    # eagerly, before the first capture
     first_step_s = stream.warm_frame_step(torch.uint8)
     peak_warm_step = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -937,6 +979,8 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
+        if i == 0:
+            captured = dict(_build.launch_counts)
         # uint8 frames cannot show a NaN: check the latents the step made
         if not torch.isfinite(state.x_t_buffer).all():
             raise AssertionError(f"frame {i}: non-finite latents")
@@ -947,13 +991,20 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
     for out in outs:
         if out.shape != (height, width, 3) or out.dtype != torch.uint8:
             raise AssertionError(f"frame output {tuple(out.shape)} {out.dtype}")
-    check_counts(f"{n_frames} stream steps", counts, expected_step, n_frames)
+    # (a) the wrappers' counts over the capture are one step's; the replays
+    # add none
+    check_counts("the capture of the stream step", captured, expected_step, 1)
+    if counts != captured:
+        raise AssertionError(f"{n_frames - 1} replays launched through the wrappers: "
+                             f"{counts} after them, {captured} after the capture")
     if not torch.isfinite(state.depth_buffer).all():
         raise AssertionError("non-finite depth latents")
     steady = sorted(times[2:])
     result = dict(
         frame=f"{width}x{height}", params=n_params, build_s=build_s, prepare_s=prepare_s,
         first_step_s=first_step_s, frames=n_frames,
+        # the first call captures the step, then replays it
+        first_call_ms=times[0], capture_ms=stream._graphs.find(state, torch.uint8).capture_s * 1e3,
         frame_ms_p50=statistics.median(steady),
         frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
         frame_ms_all=times,
@@ -970,10 +1021,9 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         output_mean=float(torch.stack(outs).float().mean()),
         output_std=float(torch.stack(outs).float().std()),
         launches_prepare=warm_counts,
-        launches_stream=counts,
-        launches_per_step={k: v / n_frames for k, v in counts.items()},
-        stream_attention_routes_per_step={k: v / n_frames for k, v in routes.items()},
-        group_norm_routes_per_step={k: v / n_frames for k, v in gn_routes.items()},
+        launches_per_step=captured,
+        stream_attention_routes_per_step=routes,
+        group_norm_routes_per_step=gn_routes,
     )
     if record_gn:
         result["group_norm_shapes"] = (logged_step["group_norm"], logged_prepare["group_norm"])
@@ -983,27 +1033,31 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare, profile
         result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
     if keep is not None:
         keep.append((stream, state, frames))
-    if profile:
-        result["profile"] = prof = profile_steps(torch, stream, state, frames[:4])
-        if isinstance(prof["device_ms_per_call"], float):
-            # the profiler slows the host; the busy share of an unprofiled step
-            prof["device_ms_over_frame_ms_p50"] = prof["device_ms_per_call"] / result["frame_ms_p50"]
-        if built.depth_model is not None:
-            result["depth_profile"] = dprof = profile_depth(torch, stream, frames[:4])
-            if isinstance(dprof["device_ms_per_call"], float):
-                dprof["share_of_step_device_ms"] = (dprof["device_ms_per_call"]
-                                                    / prof["device_ms_per_call"])
-                dprof["share_of_step_kernels"] = (dprof["kernels_per_call"]
-                                                  / prof["kernels_per_call"])
-    return result, counts
+    result["profile"] = prof = profile_steps(torch, stream, state, frames[:4])
+    if isinstance(prof["device_ms_per_call"], float):
+        # the profiler slows the host; the busy share of an unprofiled step
+        prof["device_ms_over_frame_ms_p50"] = prof["device_ms_per_call"] / result["frame_ms_p50"]
+    # (b) each wrapper's device kernels in the profiled replays, per step
+    result["device_kernels_per_step"] = check_device_kernels(
+        f"{width}x{height} replays", prof, expected_step,
+        lambda: profile_steps(torch, stream, state, frames[:4]))
+    if built.depth_model is not None:
+        result["depth_profile"] = dprof = profile_depth(torch, stream, frames[:4])
+        if isinstance(dprof["device_ms_per_call"], float):
+            dprof["share_of_step_device_ms"] = (dprof["device_ms_per_call"]
+                                                / prof["device_ms_per_call"])
+            dprof["share_of_step_kernels"] = (dprof["kernels_per_call"]
+                                              / prof["kernels_per_call"])
+    return result, captured
 
 
-def interleaved(torch, runs, rounds):
+def interleaved(torch, runs, rounds, after=None):
     """Frame times of several pipelines streamed in turn, one frame each a
     round, the order rotated every round, so that the host's drift over the
     run falls on all of them alike. ``runs``: {name: (stream, state,
     frames)}. Returns {name: {p50, p90, wins}}, ``wins`` counting the rounds
-    in which that pipeline's frame was the fastest."""
+    in which that pipeline's frame was the fastest; ``after``, a dict, gets
+    the states they leave by name."""
     names = list(runs)
     states = {n: runs[n][1] for n in names}
     times = {n: [] for n in names}
@@ -1022,6 +1076,8 @@ def interleaved(torch, runs, rounds):
         out[n] = dict(frame_ms_p50=statistics.median(srt),
                       frame_ms_p90=srt[int(0.9 * (len(srt) - 1))], fastest_in_rounds=wins,
                       rounds=rounds)
+    if after is not None:
+        after.update(states)
     return out
 
 
@@ -1038,9 +1094,10 @@ def raw_depth_stats(torch, stream, frames):
 
 def profile_device(torch, call, n):
     """torch.profiler over ``n`` calls of ``call()``: device time and kernel
-    launches per call by kernel name (and those of ``csrc/group_norm.cu``'s
-    kernel), and the device-busy share of the wall time (which the
-    profiler's own host overhead lowers)."""
+    launches per call by kernel name, the device kernels per call of each
+    wrapper (``DEVICE_KERNELS``), and the device-busy share of the wall time
+    (which the profiler's own host overhead lowers). Kernels replayed from a
+    CUDA graph are recorded one by one."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1060,25 +1117,52 @@ def profile_device(torch, call, n):
             rows.append((dev_us / 1e3 / n, e.count / n, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    group_norm_kernels = sum(r[1] for r in rows if "group_norm_kernel" in r[2])
+    by_wrapper = {name: [sum(r[1] for r in rows if re.search(pat, r[2])) for pat in pats]
+                  for name, pats in DEVICE_KERNELS.items()}
     return dict(
         calls=n, wall_ms_per_call=wall_ms,
         device_ms_per_call=device_ms if rows else "not measured",
         kernels_per_call=sum(r[1] for r in rows) if rows else "not measured",
-        group_norm_kernels_per_call=group_norm_kernels if rows else "not measured",
+        device_kernels_per_call=by_wrapper,
         device_busy_share=device_ms / wall_ms if rows else "not measured",
         top=[dict(ms_per_call=r[0], launches_per_call=r[1], name=r[2][:90]) for r in rows[:25]],
     )
 
 
-def profile_steps(torch, stream, state, frames):
-    """The device profile of a few stream steps."""
+def check_device_kernels(what, prof, expected, retrace, tries: int = 3):
+    """Each wrapper's device kernels per step in a profile of replays (every
+    name ``DEVICE_KERNELS`` lists for it) against ``expected``, its
+    launches a step. Late in a long run the profiler drops a few records of
+    a trace (PERF.md); a trace that holds fewer of some kernel and more of
+    none is taken again by ``retrace()``, up to ``tries`` traces in all.
+    Returns the counts of the trace that matched; raises if none did."""
+    seen = []
+    while True:
+        got = prof["device_kernels_per_call"]
+        seen.append(got)
+        diff = {name: (got[name], n) for name, n in expected.items()
+                if any(c != n for c in got[name])}
+        if not diff:
+            return {name: got[name][0] for name in expected}
+        over = any(c > n for name, n in expected.items() for c in got[name])
+        if over or len(seen) == tries:
+            raise AssertionError(f"{what}: device kernels a step (seen, expected) {diff} "
+                                 f"in trace {len(seen)} of {tries}")
+        prof = retrace()
+
+
+def profile_steps(torch, stream, state, frames, after=None):
+    """The device profile of a few stream steps; ``after``, a list, gets the
+    state they leave."""
     box, it = [state], iter(frames)
 
     def step():
         box[0], _ = stream(box[0], next(it))
 
-    return profile_device(torch, step, len(frames))
+    prof = profile_device(torch, step, len(frames))
+    if after is not None:
+        after.append(box[0])
+    return prof
 
 
 def profile_depth(torch, stream, frames):
@@ -1130,6 +1214,221 @@ def headline(result) -> dict:
     return dict(frame_ms_p50=result["frame_ms_p50"], frame_ms_p90=result["frame_ms_p90"],
                 device_ms_per_step=prof.get("device_ms_per_call"),
                 kernels_per_step=prof.get("kernels_per_call"))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the captured step against the eager one
+# ---------------------------------------------------------------------------
+
+CAPTURE_FRAMES = 24  # through window fill and eviction (window 16, sink 8)
+BURST_FRAMES = 10
+CLIENT_FRAMES = 32
+RELEASE_CYCLES = 3
+
+
+def eager_step(stream):
+    """The eager step of ``stream`` as a ``(state, frame) -> (state, out)``
+    callable: ``_frame_step`` with the stream's prompt, no graph."""
+    return lambda state, frame: stream._frame_step(state, frame, stream._prompt_embeds)
+
+
+def twin_states(torch, n_frames, **build_kw):
+    """build_pipeline at 512x512 and two states prepared from the same seed,
+    warm frames and prompt; returns the stream, both states, the inputs
+    (``frames`` on the device) and the bytes of one state's tensors."""
+    from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.stream.graph import state_tensors
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream = build_pipeline(BENCH_CONFIG, 512, 512, dtype=torch.bfloat16, output_uint8=True,
+                            seed=0, device=dev, **build_kw).stream
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = dict(prompt=torch.randn(1, 77, 768, generator=gen, device=dev),
+                  warm=torch.rand(8, 512, 512, 3, generator=gen, device=dev) * 2 - 1,
+                  frames=torch.randint(0, 256, (n_frames, 512, 512, 3), generator=gen,
+                                       device=dev, dtype=torch.uint8))
+    a, _ = stream.prepare(inputs["warm"], inputs["prompt"], seed=2)
+    b, _ = stream.prepare(inputs["warm"], inputs["prompt"], seed=2)
+    state_bytes = sum(t.numel() * t.element_size() for t in state_tensors(a))
+    return stream, a, b, inputs, state_bytes
+
+
+def assert_twins(torch, what, a, b):
+    """Every tensor of two states equal bit for bit: x_t_buffer,
+    depth_buffer, the window tensors and every KV cache (data and scales)."""
+    from live2diff_tpu_torch.stream.graph import state_tensors
+
+    differ = [i for i, (x, y) in enumerate(zip(state_tensors(a), state_tensors(b)))
+              if not torch.equal(x, y)]
+    if differ or a.frame_idx != b.frame_idx:
+        raise AssertionError(f"{what}: state tensors {differ} (of {len(state_tensors(a))}) "
+                             f"differ, frame_idx {a.frame_idx} / {b.frame_idx}")
+
+
+def assert_equal_outputs(torch, what, ours, ref):
+    differ = {i: (a.int() - b.int()).abs().max().item()
+              for i, (a, b) in enumerate(zip(ours, ref)) if not torch.equal(a, b)}
+    if differ or len(ours) != len(ref):
+        raise AssertionError(f"{what}: outputs differ (frame: max |d| uint8) {differ}")
+
+
+def captured_step_equality(torch, keep=None, **build_kw):
+    """``CAPTURE_FRAMES`` replays of the captured step on one state against
+    ``_frame_step`` on a twin, bit for bit: each uint8 output, then the
+    states. Also the first call's time (capture and one replay) and each
+    stream's peak device memory over its frames, net of the start.
+    ``keep``, a dict, gets the stream, both states and the inputs."""
+    stream, state_g, state_e, inputs, state_bytes = twin_states(
+        torch, CAPTURE_FRAMES, **build_kw)
+    frames = inputs["frames"]
+    stream.warm_frame_step(torch.uint8)
+    memory = {}
+
+    def run(name, step, state):
+        torch.cuda.synchronize()
+        start, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        outs, t0 = [], time.perf_counter()
+        for i, frame in enumerate(frames):
+            state, out = step(state, frame)
+            outs.append(out)
+            if i == 0:
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        memory[name] = dict(peak_net_bytes=torch.cuda.max_memory_allocated() - start,
+                            reserved_growth_bytes=torch.cuda.memory_reserved() - reserved)
+        return state, outs, first_ms
+
+    state_g, outs_g, first_call_ms = run("captured", stream, state_g)
+    state_e, outs_e, _ = run("eager", eager_step(stream), state_e)
+    assert_equal_outputs(torch, f"{CAPTURE_FRAMES} replays against the eager step", outs_g, outs_e)
+    assert_twins(torch, f"after {CAPTURE_FRAMES} replays and eager steps", state_g, state_e)
+    if keep is not None:
+        keep.update(stream=stream, state_g=state_g, state_e=state_e, inputs=inputs,
+                    state_bytes=state_bytes)
+    return dict(frames=CAPTURE_FRAMES, outputs_bit_equal=True, states_bit_equal=True,
+                first_call_ms=first_call_ms,
+                capture_ms=stream._graphs.find(state_g, torch.uint8).capture_s * 1e3,
+                memory=memory, state_bytes=state_bytes)
+
+
+def captured_step_phase(torch, _build):
+    """Phase 11 at the main path's configuration: equality, interleaved
+    frame times and device shares, stream_burst, PipelinedStream.map, and
+    the release of dropped states' graphs over prepare() cycles."""
+    import numpy as np
+
+    from live2diff_tpu_torch.stream.client import PipelinedStream
+
+    kept = {}
+    result = captured_step_equality(torch, keep=kept, kv_cache_dtype="int8")
+    stream, state_g, state_e = kept["stream"], kept["state_g"], kept["state_e"]
+    frames = kept["inputs"]["frames"]
+    eager = eager_step(stream)
+
+    # frame times in turns, then each step's device time a frame; both
+    # states take the same frames, so they stay twins
+    states = {}
+    result["interleaved"] = ab = interleaved(
+        torch, {"captured": (stream, state_g, frames), "eager": (eager, state_e, frames)},
+        INTERLEAVED_ROUNDS, after=states)
+    after = []
+    for name, step in (("captured", stream), ("eager", eager)):
+        prof = profile_steps(torch, step, states[name], frames[:4], after=after)
+        ab[name].update(device_ms_per_step=prof["device_ms_per_call"],
+                        kernels_per_step=prof["kernels_per_call"],
+                        device_share_of_frame_p50=prof["device_ms_per_call"]
+                        / ab[name]["frame_ms_p50"])
+    state_g, state_e = after
+    assert_twins(torch, "after the interleaved and profiled frames", state_g, state_e)
+
+    # stream_burst against replays, each way round; the first replays of
+    # state_e capture its own graph
+    def burst(state, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, outs = stream.stream_burst(state, chunk)
+        torch.cuda.synchronize()
+        return state, outs, (time.perf_counter() - t0) * 1e3 / len(chunk)
+
+    def calls(state, chunk):
+        torch.cuda.synchronize()
+        outs, t0 = [], time.perf_counter()
+        for f in chunk:
+            state, out = stream(state, f)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return state, outs, (time.perf_counter() - t0) * 1e3 / len(chunk)
+
+    first, second = frames[:BURST_FRAMES], frames[BURST_FRAMES:2 * BURST_FRAMES]
+    state_g, burst_a, burst_ms_a = burst(state_g, first)
+    t0 = time.perf_counter()
+    state_e, out = stream(state_e, first[0])
+    torch.cuda.synchronize()
+    second_capture_ms = (time.perf_counter() - t0) * 1e3
+    state_e, outs_a, _ = calls(state_e, first[1:])
+    assert_equal_outputs(torch, "stream_burst against replays", list(burst_a), [out] + outs_a)
+    state_e, burst_b, burst_ms_b = burst(state_e, second)
+    state_g, outs_b, calls_ms = calls(state_g, second)
+    assert_equal_outputs(torch, "stream_burst against replays (second state)", list(burst_b),
+                         outs_b)
+    assert_twins(torch, "after the bursts", state_g, state_e)
+    result["stream_burst"] = dict(
+        frames=BURST_FRAMES, bit_equal_to_replays=True, ms_a_frame=[burst_ms_a, burst_ms_b],
+        replays_ms_a_frame=calls_ms, second_state_first_call_ms=second_capture_ms,
+        second_state_capture_ms=stream._graphs.find(state_e, torch.uint8).capture_s * 1e3)
+    del burst_a, burst_b, outs_a, outs_b, out
+
+    # PipelinedStream.map over host frames against the synchronous loop
+    host = torch.randint(0, 256, (CLIENT_FRAMES, 512, 512, 3),
+                         generator=torch.Generator().manual_seed(3), dtype=torch.uint8).numpy()
+    ps = PipelinedStream(stream, state_g, max_in_flight=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    piped = list(ps.map(iter(list(host))))
+    torch.cuda.synchronize()
+    map_ms = (time.perf_counter() - t0) * 1e3 / CLIENT_FRAMES
+    state_g = ps.state
+    sync, sync_ms = [], []
+    for f in host:
+        t0 = time.perf_counter()
+        state_e, out = stream(state_e, f)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        sync.append(out)
+    assert_equal_outputs(torch, "PipelinedStream.map against the synchronous loop", piped, sync)
+    assert_twins(torch, "after PipelinedStream.map", state_g, state_e)
+    result["pipelined_stream"] = dict(
+        frames=CLIENT_FRAMES, max_in_flight=2, bit_equal_to_sync_loop=True,
+        throughput_fps=ps.throughput_fps(), wall_ms_a_frame=map_ms,
+        sync_loop_ms_p50=statistics.median(sync_ms), sync_loop_fps=1e3 / np.mean(sync_ms))
+    del ps, piped, sync, out
+
+    # dropped states and new prepare() cycles: the graphs of dropped states
+    # go, and with them their caches and activations
+    state_bytes, inputs = kept["state_bytes"], kept["inputs"]
+    del state_g, state_e, kept, states, after
+    cycles = []
+    for _ in range(RELEASE_CYCLES):
+        state, _ = stream.prepare(inputs["warm"], inputs["prompt"], seed=2)
+        for f in frames[:4]:
+            state, _ = stream(state, f)
+        del state
+        gc.collect()
+        torch.cuda.synchronize()
+        cycles.append(dict(allocated_bytes=torch.cuda.memory_allocated(),
+                           reserved_bytes=torch.cuda.memory_reserved(),
+                           graphs=len(stream._graphs.graphs)))
+    growth = cycles[-1]["allocated_bytes"] - cycles[0]["allocated_bytes"]
+    result["release"] = dict(cycles=cycles, allocated_growth_bytes=growth,
+                             limit_bytes=state_bytes)
+    if growth > state_bytes or max(c["graphs"] for c in cycles) > 1:
+        raise AssertionError(f"release: {RELEASE_CYCLES} prepare() cycles: {cycles}, "
+                             f"allocated grew {growth} bytes (one state: {state_bytes})")
+    return result
 
 
 def main() -> int:
@@ -1221,7 +1520,7 @@ def main() -> int:
                                          "1 map each")}
     before = {k: fn() for k, (fn, _) in encode_stats.items()}
     result, counts = run_stream(torch, _build, STREAM_FRAMES, EXPECTED_PER_STEP,
-                                EXPECTED_PREPARE, profile=True, keep=kept, kv_cache_dtype="int8")
+                                EXPECTED_PREPARE, keep=kept, kv_cache_dtype="int8")
     report_stream(result)
     for k, (fn, maps) in encode_stats.items():
         ns, calls = (a - b for a, b in zip(fn(), before[k]))
@@ -1245,14 +1544,16 @@ def main() -> int:
         raise AssertionError(f"main path: {step_launches} launches a step, more than "
                              f"{MAIN_PATH_LAUNCHES_PER_STEP}")
     main_path = headline(result)
+    dev_main = result["device_kernels_per_step"]
     del result
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
     result_bf16, counts_bf16 = run_stream(
         torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16,
         {"stream_attention_int8": 0, "layer_norm": 0, **OPT_IN_OFF},
-        profile=False, kv_cache_dtype="bf16", use_depth=False)
+        kv_cache_dtype="bf16", use_depth=False)
     print(json.dumps({k: v for k, v in result_bf16.items() if k != "frame_ms_all"}))
+    dev_bf16 = result_bf16["device_kernels_per_step"]
     del result_bf16
 
     phase("int8 QK at full width: bench.py's --spatial-qk int8 (flash_variant='int8')")
@@ -1260,42 +1561,34 @@ def main() -> int:
         torch, _build, INT8_QK_FRAMES,
         with_variant(EXPECTED_PER_STEP, "flash_attention_int8", GATED_PER_STEP),
         with_variant(EXPECTED_PREPARE, "flash_attention_int8", GATED_PREPARE),
-        profile=True, keep=kept, kv_cache_dtype="int8", flash_variant="int8")
+        keep=kept, kv_cache_dtype="int8", flash_variant="int8")
     report_stream(result)
     print(f"beside phase 4: {json.dumps({'main path': main_path, 'int8 QK': headline(result)})}")
+    dev_int8 = result["device_kernels_per_step"]
     del result
 
     phase("GroupNorm kernel at every site (gn_kernel_sites='all')")
     result, counts_gn = run_stream(torch, _build, GN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                                   profile=True, record_gn=True, keep=kept,
+                                   record_gn=True, keep=kept,
                                    kv_cache_dtype="int8", gn_kernel_sites="all")
     gn_step, gn_prepare = result.pop("group_norm_shapes")
     report_stream(result)
-    gn_per_step = counts_gn["group_norm"] / GN_FRAMES
+    gn_per_step = counts_gn["group_norm"]
     print(f"group_norm launches: {gn_per_step} a step (one per "
           f"GroupNorm call meeting the kernel conditions), {sum(gn_prepare.values())} in prepare")
-    # one device kernel a call, by the profile (a long trace may drop a
-    # record: up to two more traces of the same stream, none may hold more
-    # than one a call and one must hold exactly one); every step call resident
+    # one device kernel a call, by the profile of the replays (run_stream
+    # asserts it, taking another trace where one dropped a record); every
+    # step call resident
     prof = result["profile"]
-    gn_kernels = [prof["group_norm_kernels_per_call"]]
-    stream7, state7, frames7 = kept[-1]
-    while (isinstance(prof["kernels_per_call"], float) and gn_kernels[-1] != gn_per_step
-           and len(gn_kernels) < 3):
-        gn_kernels.append(profile_steps(torch, stream7, state7, frames7[4:8])
-                          ["group_norm_kernels_per_call"])
     print(f"profiled launches a stream step: {prof['kernels_per_call']} with the GroupNorm "
           f"kernel at every site, {main_path['kernels_per_step']} on the main path; "
-          f"group_norm.cu kernels a step {gn_kernels} (traces taken); "
+          f"group_norm.cu kernels a step {result['device_kernels_per_step']['group_norm']}; "
           f"routes a step {json.dumps(result['group_norm_routes_per_step'])}")
-    if isinstance(prof["kernels_per_call"], float) and (
-            gn_per_step not in gn_kernels or max(gn_kernels) > gn_per_step):
-        raise AssertionError(f"GroupNorm: {gn_kernels} group_norm.cu device kernels a step in "
-                             f"the profiles, {gn_per_step} calls")
     if result["group_norm_routes_per_step"]["streamed"]:
         raise AssertionError(f"GroupNorm: a stream step's call was not resident: "
                              f"{result['group_norm_routes_per_step']}")
     print(f"beside phase 4: {json.dumps({'main path': main_path, 'GN kernel': headline(result)})}")
+    dev_gn = result["device_kernels_per_step"]
     del result
     ab = interleaved(torch, dict(zip(("main path", "int8 QK", "GN kernel"), kept)),
                      INTERLEAVED_ROUNDS)
@@ -1314,7 +1607,7 @@ def main() -> int:
 
     phase("768x512 at full width: bench.py's second row (d-major flash, as bench.py runs it)")
     result, _ = run_stream(torch, _build, WIDE_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                           profile=True, height=512, width=768, kv_cache_dtype="int8")
+                           height=512, width=768, kv_cache_dtype="int8")
     report_stream(result)
     wide = headline(result)
     del result
@@ -1324,20 +1617,21 @@ def main() -> int:
         torch, _build, SMAJOR_FRAMES,
         with_variant(EXPECTED_PER_STEP, "flash_attention_smajor", GATED_PER_STEP),
         with_variant(EXPECTED_PREPARE, "flash_attention_smajor", GATED_PREPARE),
-        profile=True, height=512, width=768, kv_cache_dtype="int8", flash_variant="smajor")
+        height=512, width=768, kv_cache_dtype="int8", flash_variant="smajor")
     report_stream(result)
     print(f"beside phase 8: {json.dumps({'d-major': wide, 's-major': headline(result)})}")
+    dev_smajor = result["device_kernels_per_step"]
     del result
 
     phase("LayerNorm kernel at every site (ln_kernel_sites='all')")
     result, counts_ln = run_stream(torch, _build, LN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                                   profile=False, record_ln=True, kv_cache_dtype="int8",
+                                   record_ln=True, kv_cache_dtype="int8",
                                    ln_kernel_sites="all")
     ln_step, ln_prepare = result.pop("layer_norm_sites")
     by_site = Counter()
     for (site, _, c, _), k in ln_step.items():
         by_site[site, c] += k
-    print(f"layer_norm launches: {counts_ln['layer_norm'] / LN_FRAMES} a step (one per "
+    print(f"layer_norm launches: {counts_ln['layer_norm']} a step (one per "
           f"LayerNorm call meeting the kernel conditions; by (site, C): "
           f"{json.dumps({f'{k[0]} {k[1]}': v for k, v in sorted(by_site.items())})}), "
           f"{sum(ln_prepare.values())} in prepare")
@@ -1353,17 +1647,27 @@ def main() -> int:
         launch_floor_ms=floor)
     print_rows(kernels[ln_index])
 
-    # each kernel's launches come from the phase that runs it
-    source_run = {"stream_attention_bf16": (counts_bf16, BF16_FRAMES, 5),
-                  "flash_attention_int8": (counts_int8, INT8_QK_FRAMES, 6),
-                  "group_norm": (counts_gn, GN_FRAMES, 7),
-                  "flash_attention_smajor": (counts_smajor, SMAJOR_FRAMES, 9)}
+    phase("captured step: CUDA graph replays against the eager step (bench.py's main path)")
+    captured = captured_step_phase(torch, _build)
+    print(json.dumps(captured))
+    phase("captured step with a bf16 cache, no depth (phase 5's configuration)")
+    captured_bf16 = captured_step_equality(torch, kv_cache_dtype="bf16", use_depth=False)
+    print(json.dumps(captured_bf16))
+
+    # each kernel's launches come from the phase that runs it: the wrappers'
+    # counts over that phase's stream (its capture: one step), and the
+    # device kernels a step in the profile of its replays
+    source_run = {"stream_attention_bf16": (counts_bf16, dev_bf16, 5),
+                  "flash_attention_int8": (counts_int8, dev_int8, 6),
+                  "group_norm": (counts_gn, dev_gn, 7),
+                  "flash_attention_smajor": (counts_smajor, dev_smajor, 9)}
     for k in kernels:
-        run_counts, frames, ph = source_run.get(k["name"], (counts, STREAM_FRAMES, 4))
+        run_counts, dev_counts, ph = source_run.get(k["name"], (counts, dev_main, 4))
         k["launches"] = run_counts[k["name"]]
-        k["launches_per_step"] = run_counts[k["name"]] / frames
+        k["launches_per_step"] = run_counts[k["name"]]
+        k["device_launches_per_step"] = dev_counts[k["name"]]
         k["launches_phase"] = ph
-        if not k["launches"]:
+        if not k["launches"] or not k["device_launches_per_step"]:
             raise AssertionError(f"{k['name']} was not launched on phase {ph}")
 
     print(smi)

@@ -18,6 +18,7 @@ symmetric per-(slot, channel) scales.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +43,13 @@ def _divisor_127(device: torch.device) -> torch.Tensor:
     if t is None:
         t = _DIVISORS[device] = torch.tensor(127.0, dtype=torch.float32, device=device)
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def _step_rows(steps: int, device: torch.device) -> torch.Tensor:
+    """``arange(steps)`` on ``device``, the row index of every stream cache
+    write; made once, so the 40 writes of a step add no launch for it."""
+    return torch.arange(steps, device=device)
 
 
 def _quantize_kv(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,12 +80,12 @@ def write_kv_stream(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
         steps = data.shape[0]
         k8, ks = _quantize_kv(k, 1)  # [steps, HW, C] -> scales [steps, C]
         v8, vs = _quantize_kv(v, 1)
-        rows = torch.arange(steps, device=data.device)
+        rows = _step_rows(steps, data.device)
         data[rows, :, update_idx] = torch.stack([k8, v8], dim=1).transpose(-1, -2)
         scales[rows, :, update_idx] = torch.stack([ks, vs], dim=1)
         return data, scales
     steps = cache.shape[0]
-    rows = torch.arange(steps, device=cache.device)
+    rows = _step_rows(steps, cache.device)
     cache[rows, :, update_idx] = torch.stack([k, v], dim=1).transpose(-1, -2).to(cache.dtype)
     return cache
 

@@ -15,9 +15,16 @@ timestep plus the n-1 buffered latents, so each frame costs one UNet call
 and outputs lag inputs by n-1 frames. ``prepare`` runs the warmup program
 that encodes 8 frames and fills every step row of the KV caches.
 
+The step writes the whole state in place (the port's counterpart of the
+JAX package's ``donate_argnums=(1,)``): the state it returns holds the very
+tensors it was given. On CUDA, ``__call__`` and ``stream_burst`` replay a
+CUDA graph of the step (``graph.py``): one launch a frame, the counterpart
+of the JAX package's one jitted program a frame.
+
 Noise is drawn from the state's ``torch.Generator``; every draw can instead
 come from a caller's ``noise`` function (``shape -> tensor``), which is how
-the tests replay the JAX package's draws.
+the tests replay the JAX package's draws. A call with ``noise`` runs the
+step eagerly, since a Python callback cannot be captured.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from ..models.midas import DPTDepthModel, resize_nhwc
 from ..models.unet import UNet3DConditionModel
 from ..models.vae import TinyAutoencoder
 from ..schedule import LCMSchedule
-from .state import StreamState
+from .graph import StepGraphs
+from .state import StreamState, cache_tensors
 from .state_machine import init_window_state, mask_to_bias, update_window_state
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
@@ -97,6 +105,7 @@ class StreamDiffusionDepth:
             np.asarray(schedule.sub_timesteps, np.int64), device=self.device
         )
         self._prompt_embeds: Optional[torch.Tensor] = None
+        self._graphs = StepGraphs()
 
     # ------------------------------------------------------------------
     # state
@@ -120,12 +129,23 @@ class StreamDiffusionDepth:
             depth_buffer=torch.zeros(buf_shape, device=self.device),
         )
 
-    def set_prompt(self, prompt_embeds: torch.Tensor) -> None:
-        """[L, D] or [1, L, D] text embedding, broadcast to the step batch."""
-        if prompt_embeds.dim() == 2:
-            prompt_embeds = prompt_embeds[None]
+    def set_prompt(self, prompt_embeds) -> None:
+        """[L, D] or [1, L, D] text embedding, broadcast to the step batch.
+
+        The first call allocates the prompt buffer; later calls write into
+        it, so a captured step reads the new prompt at its next replay (the
+        JAX package passes the prompt to its program at every call). A
+        prompt of another shape raises."""
         embeds = torch.as_tensor(prompt_embeds, device=self.device, dtype=self.dtype)
-        self._prompt_embeds = embeds.expand(self.num_steps, *embeds.shape[1:]).contiguous()
+        if embeds.dim() == 2:
+            embeds = embeds[None]
+        shape = (self.num_steps, *embeds.shape[1:])
+        if self._prompt_embeds is None:
+            self._prompt_embeds = torch.empty(shape, device=self.device, dtype=self.dtype)
+        elif self._prompt_embeds.shape != shape:
+            raise ValueError(f"set_prompt: prompt of shape {tuple(embeds.shape)}, but this "
+                             f"stream's prompt buffer is {tuple(self._prompt_embeds.shape)}")
+        self._prompt_embeds.copy_(embeds.expand(shape))
 
     def _randn(self, state: StreamState, shape, noise: Optional[NoiseFn]) -> torch.Tensor:
         if noise is not None:
@@ -206,7 +226,10 @@ class StreamDiffusionDepth:
     @torch.no_grad()
     def _frame_step(self, state: StreamState, frame_rgb: torch.Tensor, prompt_embeds,
                     noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
-        """One streamed frame: encode -> stream-batch UNet -> LCM -> decode."""
+        """One streamed frame: encode -> stream-batch UNet -> LCM -> decode.
+
+        Writes every tensor of ``state`` in place and returns a state that
+        holds the same tensors, with ``frame_idx`` advanced."""
         cfg, n = self.cfg, self.num_steps
         if frame_rgb.dtype == torch.uint8:
             frame_rgb = frame_rgb.float() / 127.5 - 1.0
@@ -218,30 +241,29 @@ class StreamDiffusionDepth:
             x_t, depth = x_t_new, depth_new
 
         model_pred, new_caches = self._unet_apply(x_t, depth, state, prompt_embeds)
+        if any(a is not b for a, b in zip(cache_tensors(new_caches),
+                                          cache_tensors(state.kv_caches))):
+            raise RuntimeError("the UNet returned new KV cache tensors: the stream step "
+                               "needs them written in place")
         x0_batch = self._scheduler_step_batch(model_pred, x_t)
-        mask, pe_idx, update_idx = update_window_state(
-            state.attn_mask, state.pe_idx, state.update_idx, self.unet.config.sink_size
-        )
+        window = (state.attn_mask, state.pe_idx, state.update_idx)
+        update_window_state(*window, self.unet.config.sink_size, out=window)
 
         if n > 1:
             x0_out = x0_batch[-1]
+            # the latent buffers are written in place by the op that makes them
             if cfg.do_add_noise:
                 eps = self._randn(state, x0_batch[:-1].shape, noise)
-                x_t_buffer = self.alpha[1:] * x0_batch[:-1] + self.beta[1:] * eps
+                torch.add(self.alpha[1:] * x0_batch[:-1], self.beta[1:] * eps,
+                          out=state.x_t_buffer)
             else:
-                x_t_buffer = self.alpha[1:] * x0_batch[:-1]
-            depth_buffer = depth[:-1]
+                torch.mul(self.alpha[1:], x0_batch[:-1], out=state.x_t_buffer)
+            state.depth_buffer.copy_(depth[:-1])
         else:
             x0_out = x0_batch[0]
-            x_t_buffer, depth_buffer = state.x_t_buffer, state.depth_buffer
 
         out_rgb = self._decode_latents(x0_out[None])[0]
-        new_state = dataclasses.replace(
-            state, attn_mask=mask, pe_idx=pe_idx, update_idx=update_idx,
-            kv_caches=new_caches, x_t_buffer=x_t_buffer, depth_buffer=depth_buffer,
-            frame_idx=state.frame_idx + 1,
-        )
-        return new_state, out_rgb
+        return dataclasses.replace(state, frame_idx=state.frame_idx + 1), out_rgb
 
     @torch.no_grad()
     def _warmup_denoise(self, state: StreamState, warmup_rgb: torch.Tensor, prompt_embeds,
@@ -276,31 +298,80 @@ class StreamDiffusionDepth:
     def prepare(self, warmup_frames, prompt_embeds: torch.Tensor, seed: int = 2,
                 noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
         """warmup_frames: [8, H, W, 3] float in [-1, 1]. Returns the filled
-        state and the warmup frames' outputs."""
+        state and the warmup frames' outputs. Runs eagerly (once a stream);
+        on CUDA it first releases the graphs of states the caller dropped."""
+        if self.device.type == "cuda":
+            self._graphs.release_dropped()
         self.set_prompt(prompt_embeds)
         state = self.init_state(seed)
         frames = torch.as_tensor(warmup_frames, device=self.device)
         return self._warmup_denoise(state, frames, self._prompt_embeds, noise)
 
     def warm_frame_step(self, frame_dtype=torch.float32) -> float:
-        """Run one dummy frame step on a throwaway state (the first step
-        pays for library autotuning and the kernels' first loads); returns
-        wall seconds."""
+        """Run one dummy frame step eagerly on a throwaway state; returns wall
+        seconds. The first step pays for the kernels' builds and loads, their
+        shared-memory attributes, and cuBLAS and cuDNN plan selection: on
+        CUDA it runs on a side stream, as capture asks, and is the warmup
+        every capture of a ``frame_dtype`` step relies on (``__call__`` runs
+        it before its first capture if the caller has not)."""
         if self._prompt_embeds is None:
             raise RuntimeError("set_prompt()/prepare() before warm_frame_step()")
         t0 = time.perf_counter()
         dummy = torch.zeros((self.cfg.height, self.cfg.width, 3), dtype=frame_dtype,
                             device=self.device)
-        self._frame_step(self.init_state(seed=0), dummy, self._prompt_embeds)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.device.type != "cuda":
+            self._frame_step(self.init_state(seed=0), dummy, self._prompt_embeds)
+            return time.perf_counter() - t0
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._frame_step(self.init_state(seed=0), dummy, self._prompt_embeds)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        self._graphs.warmed.add(dummy.dtype)
         return time.perf_counter() - t0
 
     def __call__(self, state: StreamState, frame, noise: Optional[NoiseFn] = None
                  ) -> Tuple[StreamState, torch.Tensor]:
         """frame: [H, W, 3] float in [-1, 1] or uint8. Returns (state, the
-        output frame on the device)."""
+        output frame on the device).
+
+        On CUDA without ``noise`` this replays the captured step (captured
+        at the first call on ``state`` and this frame dtype) and returns a
+        fresh copy of the graph's output; a capture that fails raises."""
         if self._prompt_embeds is None:
             raise RuntimeError("call prepare() first")
+        if self.device.type == "cuda" and noise is None:
+            state, out = self._graphs.step(self, state, torch.as_tensor(frame))
+            return state, out.clone()
         frame = torch.as_tensor(frame, device=self.device)
         return self._frame_step(state, frame, self._prompt_embeds, noise)
+
+    def stream_burst(self, state: StreamState, frames, noise: Optional[NoiseFn] = None
+                     ) -> Tuple[StreamState, torch.Tensor]:
+        """frames: [N, H, W, 3] uint8 or float -> (state, [N, H, W, 3]
+        outputs on the device): N steps, the same as N ``__call__``s.
+
+        Port of ``live2diff_tpu/stream/pipeline.py:stream_burst`` (a
+        ``lax.scan`` of the step). On CUDA the frames go up in one copy, then
+        N replays run, each followed by a device copy of its output into
+        slot i, with no host sync between frames. Elsewhere, or with
+        ``noise``, it takes N eager steps."""
+        if self._prompt_embeds is None:
+            raise RuntimeError("call prepare() first")
+        frames = torch.as_tensor(frames)
+        if frames.dim() != 4 or tuple(frames.shape[1:]) != (self.cfg.height, self.cfg.width, 3):
+            raise ValueError(f"stream_burst: expected [N, {self.cfg.height}, {self.cfg.width}, 3]"
+                             f" frames, got {tuple(frames.shape)}")
+        frames = frames.to(self.device, non_blocking=True)
+        out_dtype = torch.uint8 if self.cfg.output_uint8 else torch.float32
+        outs = torch.empty(frames.shape, dtype=out_dtype, device=self.device)
+        graphs = self.device.type == "cuda" and noise is None
+        for i in range(frames.shape[0]):
+            if graphs:
+                state, out = self._graphs.step(self, state, frames[i])
+            else:
+                state, out = self._frame_step(state, frames[i], self._prompt_embeds, noise)
+            outs[i].copy_(out)
+        return state, outs
+

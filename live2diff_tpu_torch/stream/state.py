@@ -8,7 +8,7 @@ the small tensors, so a stream holds one copy of its caches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -30,3 +30,8 @@ class StreamState:
     x_t_buffer: torch.Tensor  # [steps-1, h, w, 4] f32
     depth_buffer: torch.Tensor  # [steps-1, h, w, 4] f32
     frame_idx: int = 0
+
+
+def cache_tensors(caches: Sequence[KVCache]) -> List[torch.Tensor]:
+    """The tensors of a KV cache tuple, int8 caches as (data, scales)."""
+    return [t for c in caches for t in (c if isinstance(c, tuple) else (c,))]

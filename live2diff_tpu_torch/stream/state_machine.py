@@ -16,7 +16,7 @@ rest of the stream step and never waits on the host.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,6 +52,7 @@ def update_window_state(
     pe_idx: torch.Tensor,
     update_idx: torch.Tensor,
     sink_size: int = WARMUP_FRAMES,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Advance the window state by one frame (called after each UNet step).
 
@@ -60,19 +61,25 @@ def update_window_state(
     PEs roll by one and the slot holding the largest PE (the oldest) is
     evicted. One more slot is unmasked each frame until all are visible.
     ``update_idx`` is not read: the next slot follows from mask and PEs.
+
+    ``out``: three tensors (the inputs themselves, for the stream step) that
+    receive (mask, pe_idx, update_idx) in place, each written by the op
+    that computes it, so the in-place update adds no launch.
     """
     del update_idx
+    mask_out, pe_out, upd_out = out if out is not None else (None, None, None)
     window_size = attn_mask.shape[-1]
     full = attn_mask.all(dim=-1, keepdim=True)  # [steps, 1]
     filled = attn_mask.long().sum(dim=-1)  # [steps]
     rolled = torch.cat(
         [pe_idx[:, :sink_size], torch.roll(pe_idx[:, sink_size:], 1, dims=-1)], dim=-1
     )
-    new_pe = torch.where(full, rolled, pe_idx)
+    new_pe = torch.where(full, rolled, pe_idx, out=pe_out)
     # torch.argmax returns the first maximal index, as jnp.argmax does
-    new_upd = torch.where(full[:, 0], torch.argmax(new_pe, dim=-1), filled)
+    new_upd = torch.where(full[:, 0], torch.argmax(new_pe, dim=-1), filled, out=upd_out)
     num_unmask = torch.clamp(filled + 1, max=window_size)
-    new_mask = torch.arange(window_size, device=attn_mask.device)[None] < num_unmask[:, None]
+    new_mask = torch.lt(torch.arange(window_size, device=attn_mask.device)[None],
+                        num_unmask[:, None], out=mask_out)
     return new_mask, new_pe, new_upd
 
 
