@@ -83,6 +83,27 @@ Phases, each printed as it ends; any failure exits non-zero:
    with its ``throughput_fps``; and three ``prepare()``-and-stream cycles
    that must leave device memory within one state's tensors of the first
    cycle, with at most one graph alive.
+12. ingest and wrapper: phase 4's pipeline (random weights, seed 0) with
+   the full-width CLIP text encoder, written in the real files' layouts
+   (``unet/diffusion_pytorch_model.bin``, ``text_encoder/pytorch_model.bin``,
+   a synthetic ``tokenizer/vocab.json`` and ``merges.txt``, a motion-module
+   ``.ckpt`` with a ``state_dict`` wrapper, ``module.`` prefixes and a
+   ``grid`` buffer, ``dpt_hybrid_384.pt``; TAESD, a kohya-style LoRA and a
+   peft-style LCM-LoRA as ``.safetensors`` written by hand), then built by
+   ``StreamV2VWrapper`` from a config naming them (CLIP, clip_skip 2, int8
+   cache, ``output_type="np"``). Every ingested parameter equals the
+   in-memory twin's, which carries the same LoRA merges; the CLIP
+   embedding is within 0.05 relative RMS of fp32 on the CPU; ``prepare``
+   (warmup, warm step, capture) launches the expected kernels, and 16
+   ``img2img`` frames of 512x512 uint8 launch nothing more, capture
+   nothing and equal the twin's bare ``stream()`` calls bit for bit, timed
+   in turns; ``update_lora_scale`` (0.5 -> 1.25) keeps every parameter's
+   address, and the replays that follow are within 0.05 relative RMS of a
+   fresh build at 1.25 stepped from the same state; the float32-frame
+   graph's device kernels a step equal phase 4's. Prints the ingest
+   seconds (read, LoRA merge, load), the prompt-encode ms, the first
+   ``img2img`` ms and the wrapper's frame p50 beside the bare ``stream()``
+   p50.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -94,8 +115,10 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1431,6 +1454,355 @@ def captured_step_phase(torch, _build):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: checkpoint ingest and the wrapper at full width
+# ---------------------------------------------------------------------------
+
+WRAPPER_FRAMES = 16
+LORA_RANK = 4
+STYLE_ALPHA, STYLE_NEW_ALPHA = 0.5, 1.25
+WRAPPER_SEED = 42
+WRAPPER_PROMPT = "a cat in the rain"
+WRAPPER_TEMPLATE = "masterpiece, best quality, intricate, print, pattern, {}"
+CLIP_SKIP = 2  # the style configs' third_party_dict.clip_skip
+# the CLIP embedding on the card (bf16) against fp32 on the CPU
+CLIP_RMS_TOL = 0.05
+# replays after update_lora_scale against a fresh build at the new strength:
+# the two round the same merged weights to bf16 along two paths (<= 1.5 ulp)
+LORA_RMS_TOL = 0.05
+UPDATE_FRAMES = 4
+
+
+def write_safetensors(torch, path, tensors) -> None:
+    """A ``.safetensors`` file by hand (the format: an 8-byte little-endian
+    header length, a JSON header, the raw bytes), as the LoRA and TAESD
+    files ship; no safetensors package is needed."""
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+    header, blobs, offset = {}, [], 0
+    for k, t in tensors.items():
+        b = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + len(b)]}
+        blobs.append(b)
+        offset += len(b)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def write_vocab(root, words) -> None:
+    """A synthetic ``tokenizer/vocab.json`` and ``merges.txt``: CLIP's byte
+    alphabet (with and without ``</w>``) plus the merges that build
+    ``words``."""
+    from live2diff_tpu_torch.utils.tokenizer import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars + [c + "</w>" for c in chars])}
+    merges = []
+    for word in words:
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            if (parts[0], parts[1]) not in merges:
+                merges.append((parts[0], parts[1]))
+            parts = [parts[0] + parts[1]] + parts[2:]
+            vocab.setdefault(parts[0], len(vocab))
+    for special in ("<|startoftext|>", "<|endoftext|>"):
+        vocab[special] = len(vocab)
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(["#version: 0.2"] + [f"{a} {b}" for a, b in merges]) + "\n")
+
+
+def lora_factors(torch, gen, out_dim, in_shape):
+    """Rank-4 (up, down) factors, N(0, 0.05^2): a visible change on
+    N(0, 0.02^2) weights."""
+    up_shape = (out_dim, LORA_RANK) + ((1, 1) if len(in_shape) == 3 else ())
+    up = torch.randn(up_shape, generator=gen) * 0.05
+    down = torch.randn((LORA_RANK, *in_shape), generator=gen) * 0.05
+    return up, down
+
+
+def write_pipeline_files(torch, root, twin):
+    """The weights of ``twin`` (a random full-width pipeline with a text
+    encoder) in the real files' layouts, and a kohya-style style LoRA and a
+    peft-style LCM-LoRA. Returns (config, LoRA state dicts, seconds)."""
+    t0 = time.perf_counter()
+    base = os.path.join(root, "sd15")
+    unet_sd = {k: v.cpu() for k, v in twin.unet.state_dict().items()}
+    text_sd = {k: v.cpu() for k, v in twin.text_encoder.state_dict().items()}
+    os.makedirs(os.path.join(base, "unet"))
+    torch.save({k: v for k, v in unet_sd.items() if ".motion_modules." not in k},
+               os.path.join(base, "unet", "diffusion_pytorch_model.bin"))
+    os.makedirs(os.path.join(base, "text_encoder"))
+    torch.save(text_sd, os.path.join(base, "text_encoder", "pytorch_model.bin"))
+    write_vocab(base, [w.strip(",") for w in (WRAPPER_TEMPLATE + " " + WRAPPER_PROMPT).split()
+                       if w != "{}"])
+    motion = {f"module.{k}": v for k, v in unet_sd.items() if ".motion_modules." in k}
+    for k in [k for k in motion if k.endswith("attention_blocks.0.to_q.weight")]:
+        motion[k[: -len("to_q.weight")] + "pos_encoder.pe"] = torch.zeros(1, 24, 320)
+    motion["module.down_blocks.0.motion_modules.0.grid"] = torch.zeros(2, 64, 64)
+    paths = {"motion": os.path.join(root, "live2diff.ckpt"),
+             "dpt": os.path.join(root, "dpt_hybrid_384.pt"),
+             "taesd": os.path.join(root, "taesd.safetensors"),
+             "style": os.path.join(root, "style-lora.safetensors"),
+             "lcm": os.path.join(root, "lcm-lora-sdv1-5.safetensors")}
+    torch.save({"state_dict": motion, "global_step": 1}, paths["motion"])
+    torch.save({k: v.cpu() for k, v in twin.depth_model.state_dict().items()}, paths["dpt"])
+    write_safetensors(torch, paths["taesd"], twin.vae.state_dict())
+
+    gen = torch.Generator().manual_seed(12)
+    style, lcm = {}, {}
+    targets = [k for k in unet_sd if k.endswith("attn2.to_k.weight")] + ["conv_in.weight"]
+    for key in targets:
+        w = unet_sd[key]
+        up, down = lora_factors(torch, gen, w.shape[0], tuple(w.shape[1:]))
+        name = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        style.update({f"{name}.lora_up.weight": up, f"{name}.lora_down.weight": down,
+                      f"{name}.alpha": torch.tensor(float(LORA_RANK))})
+    for i in range(twin.text_encoder.config.num_layers):
+        key = f"text_model.encoder.layers.{i}.self_attn.q_proj.weight"
+        up, down = lora_factors(torch, gen, text_sd[key].shape[0], (text_sd[key].shape[1],))
+        name = "lora_te_" + key[: -len(".weight")].replace(".", "_")
+        style.update({f"{name}.lora_up.weight": up, f"{name}.lora_down.weight": down})
+    for key in [k for k in unet_sd if k.endswith("attn1.to_q.weight")]:
+        w = unet_sd[key]
+        up, down = lora_factors(torch, gen, w.shape[0], (w.shape[1],))
+        name = "unet." + key[: -len(".weight")]
+        lcm.update({f"{name}.lora_B.weight": up, f"{name}.lora_A.weight": down})
+    write_safetensors(torch, paths["style"], style)
+    write_safetensors(torch, paths["lcm"], lcm)
+    config = dict(BENCH_CONFIG, pretrained_model_path=base, motion_module_path=paths["motion"],
+                  depth_model_path=paths["dpt"], taesd_path=paths["taesd"],
+                  lcm_lora_path=paths["lcm"], prompt_template=WRAPPER_TEMPLATE,
+                  third_party_dict={"clip_skip": CLIP_SKIP, "lora_list": [
+                      {"lora": paths["style"], "lora_alpha": STYLE_ALPHA}]})
+    n_style = len(targets) + twin.text_encoder.config.num_layers
+    return config, (unet_sd, text_sd, style, lcm, n_style), time.perf_counter() - t0
+
+
+def merge_into_twin(torch, twin, unet_sd, text_sd, style, lcm):
+    """The in-memory twin's weights: the same merges as the build (the
+    style LoRA, then the LCM-LoRA), written into its modules in place."""
+    from live2diff_tpu_torch.convert.lora import merge_lora_into_state_dict
+
+    merge_lora_into_state_dict(unet_sd, text_sd, style, lora_alpha=STYLE_ALPHA)
+    merge_lora_into_state_dict(unet_sd, text_sd, lcm, lora_alpha=1.0)
+    twin.unet.load_state_dict(unet_sd)
+    twin.text_encoder.load_state_dict(text_sd)
+
+
+def assert_same_weights(torch, what, a, b):
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if differ or set(pa) != set(pb):
+        raise AssertionError(f"{what}: {len(differ)} parameters differ, e.g. {differ[:3]}")
+
+
+def bf16_close(torch, what, a, b) -> float:
+    """Largest |a - b| of each parameter over max |b| of that parameter;
+    raises above 2^-6 (bf16 keeps 8 significant bits)."""
+    pb = dict(b.named_parameters())
+    worst = 0.0
+    for k, p in a.named_parameters():
+        d = (p.float() - pb[k].float()).abs().max().item()
+        worst = max(worst, d / max(pb[k].float().abs().max().item(), 1e-30))
+    if not worst <= 2 ** -6:
+        raise AssertionError(f"{what}: parameters differ by {worst:.3e} of their range")
+    return worst
+
+
+def wrapper_phase(torch, _build, smi):
+    """Phase 12: a full-width pipeline's weights written in the real files'
+    layouts, ingested by StreamV2VWrapper (CLIP and tokenizer included),
+    prepare and 16 frames against an in-memory twin bit for bit, the step's
+    kernels, the CLIP embedding against fp32 on the CPU, and a LoRA's
+    strength changed under the captured graph against a fresh build."""
+    import shutil
+
+    import numpy as np
+
+    from live2diff_tpu_torch.builder import build_pipeline, encode_prompt_for_pipeline
+    from live2diff_tpu_torch.models.text_encoder import CLIPTextModelWithFinalNorm
+    from live2diff_tpu_torch.stream.graph import state_tensors
+    from live2diff_tpu_torch.utils.image import preprocess_image
+    from live2diff_tpu_torch.wrapper import WARMUP_FRAMES, StreamV2VWrapper
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        twin = build_pipeline(BENCH_CONFIG, 512, 512, dtype=torch.bfloat16,
+                              kv_cache_dtype="int8", output_uint8=True, seed=0, device=dev,
+                              use_text_encoder=True, use_lcm_lora=False)
+        config, (unet_sd, text_sd, style, lcm, n_style), write_s = write_pipeline_files(
+            torch, root, twin)
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                 for f in fs}
+        merge_into_twin(torch, twin, unet_sd, text_sd, style, lcm)
+        del unet_sd, text_sd
+
+        t0 = time.perf_counter()
+        w = StreamV2VWrapper(config, height=512, width=512, use_text_encoder=True,
+                             kv_cache_dtype="int8", output_type="np", seed=WRAPPER_SEED,
+                             device="cuda")
+        build_s = time.perf_counter() - t0
+        expected_missing = (f"{config['pretrained_model_path']}/vae",)
+        if w.built.missing_artifacts != expected_missing:
+            raise AssertionError(f"missing artifacts {w.built.missing_artifacts}, expected "
+                                 f"{expected_missing}")
+        for name in ("unet", "vae", "depth_model", "text_encoder"):
+            assert_same_weights(torch, f"the ingested {name} against the twin's",
+                                getattr(w.built, name), getattr(twin, name))
+
+        # the prompt: the wrapper's encode, the twin's, and fp32 on the CPU
+        text = WRAPPER_TEMPLATE.replace("{}", WRAPPER_PROMPT)
+        ids = torch.from_numpy(w.built.tokenizer([text]).astype(np.int64))
+        encode_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            embeds = w.encode_prompt(WRAPPER_PROMPT)
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            twin_embeds = twin.text_encoder(ids.to(dev), clip_skip=CLIP_SKIP).float()
+            cpu_te = CLIPTextModelWithFinalNorm(twin.text_encoder.config).eval()
+            cpu_te.load_state_dict({k: v.float().cpu()
+                                    for k, v in twin.text_encoder.state_dict().items()})
+            cpu_embeds = cpu_te(ids, clip_skip=CLIP_SKIP)
+        del cpu_te
+        if not torch.equal(embeds, twin_embeds):
+            raise AssertionError("the wrapper's prompt embedding differs from the twin's")
+        clip_err = rel_rms(embeds.cpu(), cpu_embeds)
+        if not clip_err <= CLIP_RMS_TOL:
+            raise AssertionError(f"CLIP on the card: relative RMS {clip_err:.3e} against fp32 "
+                                 f"on the CPU, above {CLIP_RMS_TOL}")
+
+        rs = np.random.RandomState(5)
+        frames = rs.randint(0, 256, (WARMUP_FRAMES + WRAPPER_FRAMES + 2 * UPDATE_FRAMES + 4,
+                                     512, 512, 3)).astype(np.uint8)
+        pre = torch.from_numpy(np.stack([preprocess_image(f, 512, 512) for f in frames])).to(dev)
+
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        warm_out = w.prepare(WRAPPER_PROMPT, frames[:WARMUP_FRAMES])
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        prepare_counts = dict(_build.launch_counts)
+        # prepare's warmup, the eager warm step, the capture (one step)
+        check_counts("the wrapper's prepare (warmup, warm step, capture)", prepare_counts,
+                     {k: EXPECTED_PREPARE[k] + 2 * n for k, n in EXPECTED_PER_STEP.items()}, 1)
+        n_graphs = len(w.stream._graphs.graphs)
+        state_t, twin_warm = twin.stream.prepare(pre[:WARMUP_FRAMES], twin_embeds,
+                                                 seed=WRAPPER_SEED)
+        if not np.array_equal(warm_out, twin_warm.cpu().numpy()):
+            raise AssertionError("prepare: the wrapper's warmup outputs differ from the twin's")
+        twin.stream.warm_frame_step(torch.float32)
+        twin.stream.capture_step(state_t, torch.float32)
+
+        # the wrapper's frames and the twin's bare stream() calls in turns
+        _build.reset_launch_counts()
+        times = {"wrapper": [], "stream": []}
+        outs_w, outs_t = [], []
+        for i in range(WRAPPER_FRAMES):
+            f = WARMUP_FRAMES + i
+            for name in (("wrapper", "stream") if i % 2 == 0 else ("stream", "wrapper")):
+                t0 = time.perf_counter()
+                if name == "wrapper":
+                    outs_w.append(w(frames[f]))
+                else:
+                    state_t, out = twin.stream(state_t, pre[f])
+                    torch.cuda.synchronize()
+                    outs_t.append(out)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        if any(_build.launch_counts.values()) or len(w.stream._graphs.graphs) != n_graphs:
+            raise AssertionError(f"the wrapper's frames captured or launched again: "
+                                 f"{dict(_build.launch_counts)}")
+        differ = [i for i, (a, b) in enumerate(zip(outs_w, outs_t))
+                  if not np.array_equal(a, b.cpu().numpy())]
+        if differ or len(outs_w) != WRAPPER_FRAMES:
+            raise AssertionError(f"wrapper frames {differ} differ from the twin's")
+        steady = {k: sorted(v[2:]) for k, v in times.items()}
+
+        # update_lora_scale under the captured graph, against a fresh build
+        params = dict(w.built.unet.named_parameters())
+        ptrs = {k: p.data_ptr() for k, p in params.items()}
+        n_updated = w.update_lora_scale("style-lora", STYLE_NEW_ALPHA)
+        w.update_prompt(WRAPPER_PROMPT)  # the text encoder's new weights
+        if n_updated != n_style or {k: p.data_ptr() for k, p in params.items()} != ptrs:
+            raise AssertionError(f"update_lora_scale: {n_updated} parameters (expected "
+                                 f"{n_style}), addresses kept: "
+                                 f"{ {k: p.data_ptr() for k, p in params.items()} == ptrs}")
+        del twin, state_t
+        gc.collect()
+        fresh_cfg = dict(config, third_party_dict=dict(config["third_party_dict"], lora_list=[
+            {"lora": config["third_party_dict"]["lora_list"][0]["lora"],
+             "lora_alpha": STYLE_NEW_ALPHA}]))
+        fresh = build_pipeline(fresh_cfg, 512, 512, dtype=torch.bfloat16, kv_cache_dtype="int8",
+                               output_uint8=True, seed=0, device=dev, use_text_encoder=True)
+        weight_err = {name: bf16_close(torch, f"{name} after update_lora_scale against a fresh "
+                                       f"build", getattr(w.built, name), getattr(fresh, name))
+                      for name in ("unet", "text_encoder")}
+        fresh.stream.set_prompt(encode_prompt_for_pipeline(fresh, text))
+        state_f, _ = fresh.stream.prepare(pre[:WARMUP_FRAMES], fresh.stream._prompt_embeds[:1],
+                                          seed=WRAPPER_SEED)
+        for a, b in zip(state_tensors(state_f), state_tensors(w._state)):
+            a.copy_(b)  # the wrapper's state, into the fresh pipeline's
+        w._state.generator.manual_seed(77)
+        state_f.generator.manual_seed(77)
+        update_err = []
+        for i in range(UPDATE_FRAMES):
+            f = WARMUP_FRAMES + WRAPPER_FRAMES + i
+            out_w = w(frames[f])
+            state_f, out_f = fresh.stream._frame_step(state_f, pre[f], fresh.stream._prompt_embeds)
+            update_err.append(rel_rms(torch.from_numpy(out_w), out_f.cpu()))
+        if len(w.stream._graphs.graphs) != n_graphs:
+            raise AssertionError("update_lora_scale led to a new capture")
+        if not max(update_err) <= LORA_RMS_TOL:
+            raise AssertionError(f"replays after update_lora_scale: relative RMS {update_err} "
+                                 f"against a fresh build at {STYLE_NEW_ALPHA}")
+        del fresh, state_f
+        gc.collect()
+
+        # the float32-frame graph's device kernels a step, by name
+        it = iter(frames[-4:])
+        prof = profile_device(torch, lambda: w(next(it)), 4)
+        dev_counts = check_device_kernels(
+            "the wrapper's replays", prof, EXPECTED_PER_STEP,
+            lambda: profile_device(torch, lambda: w(frames[-1]), 4))
+        result = dict(
+            card=smi, files_bytes=sizes, write_s=write_s, wrapper_build_s=build_s,
+            ingest_s=w.built.ingest_s, missing_artifacts=list(w.built.missing_artifacts),
+            prompt_encode_ms=encode_ms, clip_rel_rms_vs_cpu_fp32=clip_err,
+            prepare_s=prepare_s, first_step_warm_s=w.first_step_warm_s,
+            capture_ms=w.capture_s * 1e3, launches_prepare=prepare_counts,
+            first_img2img_ms=times["wrapper"][0],
+            wrapper_frame_ms_p50=statistics.median(steady["wrapper"]),
+            wrapper_frame_ms_p90=steady["wrapper"][int(0.9 * (len(steady["wrapper"]) - 1))],
+            stream_frame_ms_p50=statistics.median(steady["stream"]),
+            stream_frame_ms_p90=steady["stream"][int(0.9 * (len(steady["stream"]) - 1))],
+            frame_ms_all=times, outputs_bit_equal_to_twin=True, frames=WRAPPER_FRAMES,
+            lora_parameters_updated=n_updated, lora_weight_err_vs_fresh=weight_err,
+            lora_replay_rel_rms_vs_fresh=update_err,
+            device_kernels_per_step=dev_counts,
+            kernels_per_step_float32_frames=prof["kernels_per_call"],
+            device_ms_per_step=prof["device_ms_per_call"])
+        del w
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +2025,18 @@ def main() -> int:
     phase("captured step with a bf16 cache, no depth (phase 5's configuration)")
     captured_bf16 = captured_step_equality(torch, kv_cache_dtype="bf16", use_depth=False)
     print(json.dumps(captured_bf16))
+
+    phase("ingest and wrapper at full width: StreamV2VWrapper from files (CLIP, tokenizer, "
+          "motion module, DPT, TAESD, two LoRAs)")
+    wrapped = wrapper_phase(torch, _build, smi)
+    print(json.dumps({k: v for k, v in wrapped.items() if k != "frame_ms_all"}))
+    print(f"frame ms all, wrapper and bare stream() in turns: {json.dumps(wrapped['frame_ms_all'])}")
+    print(f"kernels a step: {wrapped['kernels_per_step_float32_frames']} with float32 frames "
+          f"(the wrapper's graph), {main_path['kernels_per_step']} with uint8 frames (phase 4) "
+          f"({smi})")
+    if dev_main != wrapped["device_kernels_per_step"]:
+        raise AssertionError(f"the wrapper's step launched {wrapped['device_kernels_per_step']}, "
+                             f"phase 4's {dev_main}")
 
     # each kernel's launches come from the phase that runs it: the wrappers'
     # counts over that phase's stream (its capture: one step), and the

@@ -9,8 +9,10 @@ Port of ``live2diff_tpu/ops/attention.py``. Two functions:
   kernels there (their plain versions on the CPU). Every other call, and
   every call of the default ``dmajor``, launches the d-major flash kernel
   on CUDA tensors (any rank: leading dims fold into the batch) and runs
-  the plain dense version on the CPU. A call with a bias has no kernel yet
-  and raises on CUDA.
+  the plain dense version on the CPU. A call with a bias (the text
+  encoder's causal mask) takes the plain dense version on every device:
+  fp32 logits plus the bias, then the softmax. No Pallas kernel computes
+  that function; the JAX package sends it to plain XLA.
 * ``stream_window_attention``: one new frame's temporal attention over the
   streaming KV cache, with the positional encodings factored out of the
   cache. On CUDA an int8 cache goes through the int8 stream-attention
@@ -71,18 +73,15 @@ def dot_product_attention(
     q4 = q.reshape(-1, *q.shape[-3:])
     k4 = k.reshape(-1, *k.shape[-3:])
     v4 = v.reshape(-1, *v.shape[-3:])
-    if q.is_cuda:
-        if bias is not None:
-            raise NotImplementedError(
-                "dot_product_attention with a bias has no CUDA kernel yet "
-                "(its only user, the text encoder, is not ported)"
-            )
+    if bias is not None:
+        # no kernel computes attention with a bias (the JAX package sends
+        # these calls to plain XLA): the dense path on every device
+        bias = bias.expand(*lead, q.shape[-2], q.shape[-3], k.shape[-3])
+        out = flash_attention_plain(q4, k4, v4, scale, bias.reshape(-1, *bias.shape[-3:]))
+    elif q.is_cuda:
         out = flash_attention(q4.contiguous(), k4.contiguous(), v4.contiguous(), scale)
     else:
-        if bias is not None:
-            bias = bias.expand(*lead, q.shape[-2], q.shape[-3], k.shape[-3])
-            bias = bias.reshape(-1, *bias.shape[-3:])
-        out = flash_attention_plain(q4, k4, v4, scale, bias)
+        out = flash_attention_plain(q4, k4, v4, scale)
     return out.reshape(*lead, *out.shape[-3:]).to(q.dtype)
 
 

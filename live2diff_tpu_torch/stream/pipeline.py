@@ -331,6 +331,18 @@ class StreamDiffusionDepth:
         self._graphs.warmed.add(dummy.dtype)
         return time.perf_counter() - t0
 
+    def capture_step(self, state: StreamState, frame_dtype=torch.float32) -> float:
+        """Capture the step of ``state`` for ``frame_dtype`` frames now,
+        without streaming a frame (a capture records the kernels and runs
+        none, so ``state`` is left as it was), so that the first call on it
+        replays. Returns the capture's wall seconds: 0.0 on the CPU or where
+        the graph exists. Runs the eager warm step first if no call has."""
+        if self._prompt_embeds is None:
+            raise RuntimeError("call prepare() first")
+        if self.device.type != "cuda" or self._graphs.find(state, frame_dtype):
+            return 0.0
+        return self._graphs.capture(self, state, frame_dtype).capture_s
+
     def __call__(self, state: StreamState, frame, noise: Optional[NoiseFn] = None
                  ) -> Tuple[StreamState, torch.Tensor]:
         """frame: [H, W, 3] float in [-1, 1] or uint8. Returns (state, the

@@ -48,6 +48,26 @@ def test_importing_the_port_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_importing_the_port_pulls_in_no_optional_host_package():
+    """safetensors, Pillow and imageio are optional on the card's host: the
+    port reads .safetensors itself and imports Pillow and imageio only in
+    the calls that need them."""
+    code = (
+        "import importlib, pkgutil, sys, live2diff_tpu_torch\n"
+        "for m in pkgutil.walk_packages(live2diff_tpu_torch.__path__, 'live2diff_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('safetensors', 'PIL', 'imageio')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    offenders = [path for path in _port_sources()
+                 if re.search(r"^\s*(import|from)\s+safetensors\b", open(path).read(), re.M)]
+    assert not offenders, offenders
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     for path in _port_sources():
@@ -69,7 +89,7 @@ def test_build_pipeline_depth_raises_with_the_roadmap_item():
     """Depth is ported; the full KL codec is not, and says where it stands."""
     from live2diff_tpu_torch.builder import build_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
         build_pipeline({"t_index_list": [30, 40]}, use_tiny_vae=False, device="cpu")
 
 

@@ -453,8 +453,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 8, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # Cout must be 64
         conv3x3(x, torch.zeros(32, 64, 3, 3, device=dev, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError):  # a bias has no kernel yet
-        dot_product_attention(q[..., :64], q[..., :64], q[..., :64], bias=torch.zeros((), device=dev))
+    # a bias has no kernel: the dense path, no flash launch, the CPU's result
+    before = _build.launch_counts["flash_attention"]
+    qb = torch.randn(1, 8, 2, 64, device=dev).to(torch.bfloat16)
+    bias = torch.triu(torch.full((8, 8), float("-inf"), device=dev), 1)[None, None]
+    out = dot_product_attention(qb, qb, qb, bias=bias)
+    assert _build.launch_counts["flash_attention"] == before
+    ref = dot_product_attention(qb.cpu(), qb.cpu(), qb.cpu(), bias=bias.cpu())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-2, atol=1e-2)
     with pytest.raises(ValueError):  # C % 8 != 0
         layer_norm_rows(torch.zeros(4, 20, device=dev, dtype=torch.bfloat16),
                         torch.ones(20, device=dev, dtype=torch.bfloat16),
