@@ -104,6 +104,34 @@ Phases, each printed as it ends; any failure exits non-zero:
    seconds (read, LoRA merge, load), the prompt-encode ms, the first
    ``img2img`` ms and the wrapper's frame p50 beside the bare ``stream()``
    p50.
+13. KL codec: phase 4's configuration with ``use_tiny_vae=False`` (SD-1.5's
+   AutoencoderKL, random weights from seed 0): first the narrow pipeline
+   with the KL codec on the card (bf16) against fp32 on the CPU, as phase 3;
+   then ``prepare`` and 16 frames at full width, profiled, with stream
+   attention, flash and LayerNorm launched as in phase 4 and no TAESD conv
+   kernel; the codec's encode (frame and depth image) and decode alone
+   beside TAESD's, its share of the frame, peak memory, and 16 frames in
+   turns with phase 4's pipeline.
+14. MultiStream: phase 4's pipeline (TAESD, depth, int8 cache) at S = 2 and
+   S = 4 sessions, both graphs captured when each ``MultiStream`` is built
+   (its two eager warm rounds and two captures launch four single steps'
+   worth of each kernel, asserted), ``prepare_session`` for each slot from
+   its own seed; 16 all-active rounds in turns with phase 4's single
+   stream, each session held to a single-session twin of the same seed
+   and frames (noised latents within 0.05 relative RMS, uint8 outputs
+   within 2 levels); 8 masked rounds with the
+   last session idle, whose tensors and generator state are bit-equal
+   across each; fed again it matches its twin (and, at S = 2, bit for bit
+   a MultiStream session that never idled); a round's device kernels by
+   name in a profile of replays equal one single-session step's. Prints
+   the round p50 per S, the frames a second in all against the single
+   stream's, the masked round's cost over the plain one's, peak memory.
+15. demo server: ``serve/server.py``'s ``BatchedDemoPipeline`` with 2
+   sessions at 512x512 (the server's default flags) on a free localhost
+   port in this process; two WebSocket users send JPEG frames (8 warmup,
+   then one at a time) until 16 MJPEG outputs each came back, decoded and
+   shape-checked. Prints each user's fps and which encoder (framepump's
+   libjpeg or Pillow) wrote the MJPEG frames.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -792,7 +820,7 @@ SMALL_DPT = dict(image_size=384, patch_grid=24, vit_hidden=16, vit_layers=2, vit
                  vit_mlp=32, hooks=(0, 1), resnet_layers=(1, 1, 1), features=8)
 
 
-def small_input_check(torch):
+def small_input_check(torch, use_tiny_vae: bool = True):
     from live2diff_tpu_torch.builder import build_pipeline
     from live2diff_tpu_torch.models.midas import DPTConfig, DPTDepthModel
     from live2diff_tpu_torch.stream.pipeline import StreamDiffusionDepth
@@ -803,7 +831,8 @@ def small_input_check(torch):
 
     def build(device, dtype):
         b = build_pipeline(SMALL_CONFIG, 64, 64, dtype=dtype, kv_cache_dtype="int8",
-                           seed=0, device=device, unet_overrides=SMALL_UNET, use_depth=False)
+                           seed=0, device=device, unet_overrides=SMALL_UNET, use_depth=False,
+                           use_tiny_vae=use_tiny_vae)
         depth = DPTDepthModel(DPTConfig(**SMALL_DPT))
         depth.load_state_dict(dpt.state_dict())
         depth = depth.to(device=device, dtype=dtype).eval()
@@ -1803,6 +1832,455 @@ def wrapper_phase(torch, _build, smi):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the KL codec at full width
+# ---------------------------------------------------------------------------
+
+KL_FRAMES = 16
+KL_ROUNDS = 16
+CODEC_REPS = 10
+# the KL codec's convs are cuDNN's: no TAESD conv kernel on its path
+NO_TAESD = {"conv3x3": 0, "conv3x3_s2": 0}
+
+
+def codec_ms(torch, stream) -> dict:
+    """Device ms (CUDA events, L2 overwritten) of the stream's codec alone:
+    one encode of the step's batch (frame and depth image, or the frame)
+    and one decode of the step's latent."""
+    dev = torch.device("cuda")
+    cfg = stream.cfg
+    n = 2 if stream.depth_model is not None else 1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.rand(n, cfg.height, cfg.width, 3, generator=gen, device=dev) * 2 - 1
+         ).to(stream.dtype)
+    z = torch.randn(1, cfg.latent_height, cfg.latent_width, 4, generator=gen,
+                    device=dev).to(stream.dtype)
+    with torch.no_grad():
+        return dict(encode_ms=time_ms(lambda: stream.vae.encode(x), CODEC_REPS),
+                    decode_ms=time_ms(lambda: stream.vae.decode(z), CODEC_REPS),
+                    encode_batch=n)
+
+
+def kl_phase(torch, _build, main_keep) -> dict:
+    """Phase 13: phase 4's configuration with use_tiny_vae=False. The
+    narrow pipeline on the card against fp32 on the CPU, the full-width
+    stream (launches asserted, profiled), the codec's encode and decode
+    alone beside TAESD's, and the frame in turns with phase 4's."""
+    errs, depth_err, _ = small_input_check(torch, use_tiny_vae=False)
+    kept = []
+    result, counts = run_stream(torch, _build, KL_FRAMES, {**EXPECTED_PER_STEP, **NO_TAESD},
+                                {**EXPECTED_PREPARE, **NO_TAESD}, keep=kept,
+                                kv_cache_dtype="int8", use_tiny_vae=False)
+    stream = kept[0][0]
+    result["params"]["vae"] = sum(p.numel() for p in stream.vae.parameters())
+    result["codec"] = codec = codec_ms(torch, stream)
+    result["taesd_codec"] = codec_ms(torch, main_keep[0])
+    result["codec_share_of_frame_p50"] = (codec["encode_ms"] + codec["decode_ms"]) / result[
+        "frame_ms_p50"]
+    result["small_input_rel_rms"] = errs
+    result["small_input_depth_rel_rms"] = depth_err
+    after = {}
+    result["in_turns_with_phase_4"] = interleaved(
+        torch, {"main path (TAESD)": main_keep, "KL codec": kept[0]}, KL_ROUNDS, after=after)
+    main_keep[1] = after["main path (TAESD)"]
+    kept.clear()
+    return result, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: MultiStream at full width
+# ---------------------------------------------------------------------------
+
+MULTI_SESSIONS = (2, 4)
+MULTI_ROUNDS = 16
+MASKED_ROUNDS = 8
+# A session against its single-session twin (same seed, prompt and
+# frames): the batched step at S * 2 step rows and the single one at 2 run
+# other GEMM and conv algorithms in bf16, so they need not be bit-equal.
+# Held: the noised latents in flight (x_t_buffer, of which a wrong
+# generator, frame or prompt moves about all) within 0.05 relative RMS,
+# and the uint8 outputs within 2 levels (random N(0, 0.02^2) weights make
+# near-flat frames, so a relative error of the frames says little; PR 11's
+# first chip run saw 1 level)
+MULTI_RMS_TOL = 0.05
+MULTI_UINT8_TOL = 2
+
+
+def multi_phase(torch, _build, main_keep, dev_main) -> dict:
+    """Phase 14: MultiStream over phase 4's pipeline at S = 2 and 4."""
+    from live2diff_tpu_torch.stream.graph import state_tensors
+    from live2diff_tpu_torch.stream.multi import MultiStream
+
+    stream, single_state, _ = main_keep
+    dev = torch.device("cuda")
+    out = {}
+    for s in MULTI_SESSIONS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(100 + s)
+        prompts = torch.randn(s, 77, 768, generator=gen, device=dev)
+        warm = torch.rand(s, 8, 512, 512, 3, generator=gen, device=dev) * 2 - 1
+        frames = torch.randint(0, 256, (MULTI_ROUNDS + MASKED_ROUNDS + 1, s, 512, 512, 3),
+                               generator=gen, device=dev, dtype=torch.uint8)
+        seeds = [1000 + 10 * s + i for i in range(s)]
+
+        # both graphs captured at construction, after an eager warm round of each
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        multi = MultiStream(stream, s)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check_counts(f"MultiStream({s}) construction (2 eager rounds, 2 captures)",
+                     _build.launch_counts, EXPECTED_PER_STEP, 4)
+        construct_counts = dict(_build.launch_counts)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        states = None
+        for i in range(s):
+            states, _ = multi.prepare_session(states, i, warm[i], prompts[i], seed=seeds[i])
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        check_counts(f"prepare_session x {s}", _build.launch_counts, EXPECTED_PREPARE, s)
+        replica = None
+        if s == 2:  # a twin that never idles, for the masked rounds' check
+            replica = MultiStream(stream, s)
+            rstates = None
+            for i in range(s):
+                rstates, _ = replica.prepare_session(rstates, i, warm[i], prompts[i],
+                                                     seed=seeds[i])
+
+        # all-active rounds, in turns with phase 4's single stream
+        _build.reset_launch_counts()
+        times, single_times, outs = [], [], []
+        for r in range(MULTI_ROUNDS):
+            t0 = time.perf_counter()
+            states, o = multi(states, frames[r])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(o)
+            t0 = time.perf_counter()
+            single_state, _ = stream(single_state, frames[r, 0])
+            torch.cuda.synchronize()
+            single_times.append((time.perf_counter() - t0) * 1e3)
+        for r in range(MULTI_ROUNDS if replica is not None else 0):
+            rstates, _ = replica(rstates, frames[r])
+        if any(_build.launch_counts.values()):
+            raise AssertionError(f"MultiStream({s}) replays launched through the wrappers: "
+                                 f"{dict(_build.launch_counts)}")
+        for o in outs:
+            if o.shape != (s, 512, 512, 3) or o.dtype != torch.uint8:
+                raise AssertionError(f"MultiStream({s}) output {tuple(o.shape)} {o.dtype}")
+
+        # each session against a single-session twin of the same seed and frames
+        errs, max_abs, twins = [], 0, {}
+        for i in range(s):
+            st, _ = stream.prepare(warm[i], prompts[i], seed=seeds[i])
+            for r in range(MULTI_ROUNDS):
+                st, o = stream(st, frames[r, i])
+                max_abs = max(max_abs, (outs[r][i].int() - o.int()).abs().max().item())
+            errs.append(rel_rms(states.x_t_buffer[i], st.x_t_buffer))
+            if i == s - 1:
+                twins[i] = st
+            del st
+        if not (max(errs) <= MULTI_RMS_TOL and max_abs <= MULTI_UINT8_TOL):
+            raise AssertionError(f"MultiStream({s}) against single sessions: latents rel RMS "
+                                 f"{max(errs)} (tol {MULTI_RMS_TOL}), outputs max |d| "
+                                 f"{max_abs} (tol {MULTI_UINT8_TOL})")
+
+        # masked rounds: the last session idle, its state bit-equal across each
+        idle = s - 1
+        active = [i != idle for i in range(s)]
+        masked_times = []
+        for r in range(MASKED_ROUNDS):
+            before = [t[idle].clone() for t in state_tensors(states)]
+            gen_before = states.generator[idle].get_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, _ = multi(states, frames[MULTI_ROUNDS + r], active)
+            torch.cuda.synchronize()
+            masked_times.append((time.perf_counter() - t0) * 1e3)
+            differ = [k for k, (b, t) in enumerate(zip(before, state_tensors(states)))
+                      if not torch.equal(b, t[idle])]
+            if differ or not torch.equal(gen_before, states.generator[idle].get_state()):
+                raise AssertionError(f"MultiStream({s}) masked round {r}: idle session's "
+                                     f"tensors {differ} or generator changed")
+            del before
+        # fed again, the idle session matches a session that never idled
+        last = frames[MULTI_ROUNDS + MASKED_ROUNDS]
+        states, o = multi(states, last)
+        st, ref = stream(twins[idle], last[idle])
+        fed_err = rel_rms(states.x_t_buffer[idle], st.x_t_buffer)
+        fed_abs = (o[idle].int() - ref.int()).abs().max().item()
+        if not (fed_err <= MULTI_RMS_TOL and fed_abs <= MULTI_UINT8_TOL):
+            raise AssertionError(f"MultiStream({s}): the idle session fed again is {fed_err} "
+                                 f"(latents), {fed_abs} (uint8) from its single twin")
+        replica_equal = None
+        if replica is not None:
+            rstates, ro = replica(rstates, last)
+            replica_equal = torch.equal(o[idle], ro[idle])
+            if not replica_equal:
+                raise AssertionError("MultiStream(2): the idle session fed again differs from "
+                                     "a MultiStream session that never idled")
+            del replica, rstates
+        del twins, st
+
+        # device kernels a round in the profile of replays: one step's
+        box = [states]
+
+        def round_():
+            box[0], _ = multi(box[0], frames[0])
+
+        prof = profile_device(torch, round_, 4)
+        dev_round = check_device_kernels(f"MultiStream({s}) replays", prof, EXPECTED_PER_STEP,
+                                         lambda: profile_device(torch, round_, 4))
+        if dev_round != dev_main:
+            raise AssertionError(f"MultiStream({s}): a round launched {dev_round}, one "
+                                 f"single-session step {dev_main}")
+        plain_p50 = statistics.median(sorted(times[2:]))
+        masked_p50 = statistics.median(masked_times[1:])
+        single_p50 = statistics.median(single_times[2:])
+        out[f"S={s}"] = dict(
+            construct_s=build_s, warm_s=multi.warm_s,
+            capture_ms={k: v * 1e3 for k, v in multi.capture_s.items()},
+            launches_construct=construct_counts, launches_per_round=dict(
+                (k, v // 4) for k, v in construct_counts.items()),
+            prepare_sessions_s=prepare_s,
+            round_ms_p50=plain_p50, round_ms_p90=sorted(times[2:])[int(0.9 * (len(times) - 3))],
+            masked_round_ms_p50=masked_p50, masked_over_plain=masked_p50 / plain_p50,
+            aggregate_fps=s * 1e3 / plain_p50, single_stream_frame_ms_p50_in_turns=single_p50,
+            single_stream_fps_in_turns=1e3 / single_p50,
+            aggregate_over_single=(s * 1e3 / plain_p50) / (1e3 / single_p50),
+            latents_rel_rms_against_single_max=max(errs),
+            max_abs_uint8_against_single=max_abs, tolerance_latents_rel_rms=MULTI_RMS_TOL,
+            tolerance_uint8=MULTI_UINT8_TOL, idle_fed_again_latents_rel_rms=fed_err,
+            idle_fed_again_max_abs_uint8=fed_abs,
+            idle_fed_again_equals_never_idled_multistream=replica_equal,
+            idle_state_bit_equal_rounds=MASKED_ROUNDS,
+            device_kernels_per_round=dev_round, profile=prof,
+            peak_memory_net_bytes=torch.cuda.max_memory_allocated() - start,
+            stacked_state_bytes=sum(t.numel() * t.element_size()
+                                    for t in state_tensors(states)),
+        )
+        if isinstance(prof["device_ms_per_call"], float):
+            out[f"S={s}"]["device_ms_per_round"] = prof["device_ms_per_call"]
+        del multi, states, outs, box
+    main_keep[1] = single_state
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the demo server over localhost
+# ---------------------------------------------------------------------------
+
+SERVER_SESSIONS = 2
+SERVER_OUTPUTS = 16  # outputs each user waits for, after 8 warmup frames
+SERVER_TIMEOUT_S = 90
+
+
+class WSClient:
+    """A minimal WebSocket client (masked frames, 7/16/64-bit lengths) for
+    the demo server's ``/api/ws/{user_id}``."""
+
+    def __init__(self, port, uid):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+        self.buf = b""
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /api/ws/{uid} HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n\r\n").encode())
+        while b"\r\n\r\n" not in self.buf:
+            self.buf += self.sock.recv(4096)
+        head, _, self.buf = self.buf.partition(b"\r\n\r\n")
+        if b"101" not in head.split(b"\r\n")[0]:
+            raise AssertionError(f"WebSocket handshake refused: {head[:80]!r}")
+
+    def _read(self, n):
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("server closed the WebSocket")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def send(self, payload, opcode):
+        mask = os.urandom(4)
+        n = len(payload)
+        header = bytes([0x80 | opcode])
+        if n < 126:
+            header += bytes([0x80 | n])
+        elif n < (1 << 16):
+            header += bytes([0x80 | 126]) + struct.pack(">H", n)
+        else:
+            header += bytes([0x80 | 127]) + struct.pack(">Q", n)
+        import numpy as np
+
+        m = np.frombuffer(mask * (n // 4 + 1), np.uint8)[:n]
+        self.sock.sendall(header + mask + (np.frombuffer(payload, np.uint8) ^ m).tobytes())
+
+    def recv(self):
+        hdr = self._read(2)
+        n = hdr[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", self._read(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._read(8))[0]
+        return hdr[0] & 0xF, self._read(n)
+
+
+def mjpeg_reader(port, uid, frames, stop):
+    """Collect the JPEG frames of ``/api/stream/{uid}`` as (arrival time,
+    bytes) until ``stop`` is set."""
+    import socket
+
+    c = socket.create_connection(("127.0.0.1", port), timeout=30)
+    c.sendall(f"GET /api/stream/{uid} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    c.settimeout(0.2)
+    buf = b""
+    while not stop.is_set():
+        try:
+            chunk = c.recv(1 << 20)
+        except socket.timeout:
+            continue
+        if not chunk:
+            break
+        buf += chunk
+        while True:
+            a, b = buf.find(b"\xff\xd8"), buf.find(b"\xff\xd9")
+            if a == -1 or b == -1:
+                break
+            frames.append((time.perf_counter(), buf[a:b + 2]))
+            buf = buf[b + 2:]
+    c.close()
+
+
+def server_user(port, uid, jpegs, frames, log):
+    """One user: send a JPEG on each ``send_frame``, one at a time once
+    streaming (the next after an output or 0.5 s), until
+    ``SERVER_OUTPUTS`` outputs came back."""
+    ws = WSClient(port, uid)
+    sent, t0 = 0, time.perf_counter()
+    try:
+        while len(frames) < SERVER_OUTPUTS and time.perf_counter() - t0 < SERVER_TIMEOUT_S:
+            _, data = ws.recv()
+            if json.loads(data).get("status") != "send_frame":
+                continue
+            seen = len(frames)
+            if sent >= 8:  # streaming: wait for the last frame's output
+                deadline = time.perf_counter() + 0.5
+                while len(frames) == seen and time.perf_counter() < deadline:
+                    time.sleep(0.002)
+            ws.send(json.dumps({"prompt": f"user {uid}"}).encode(), 0x1)
+            ws.send(jpegs[sent % len(jpegs)], 0x2)
+            sent += 1
+    finally:
+        ws.sock.close()
+        log[uid] = sent
+
+
+def server_phase(torch) -> dict:
+    """Phase 15: serve/server.py's BatchedDemoPipeline (--sessions 2, 512x512,
+    the server's default flags) on a free port in this process; two
+    WebSocket users each send JPEG frames and read MJPEG back."""
+    import asyncio
+    import io
+    import socket
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from live2diff_tpu_torch.serve import framepump, server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipeline = server.BatchedDemoPipeline(BENCH_CONFIG, 512, 512, SERVER_SESSIONS,
+                                          device="cuda")
+    build_s = time.perf_counter() - t0
+    app = server.App(pipeline, max_users=SERVER_SESSIONS)
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    loop = asyncio.new_event_loop()
+    started, shutdown = threading.Event(), []
+
+    async def serve():
+        srv = await asyncio.start_server(app.handle, "127.0.0.1", port)
+        shutdown.append(asyncio.Event())
+        started.set()
+        await shutdown[0].wait()
+        srv.close()
+
+    def run_loop():
+        loop.run_until_complete(serve())
+        pending = asyncio.all_tasks(loop)  # connection handlers, the dispatcher
+        for task in pending:
+            task.cancel()
+        loop.run_until_complete(asyncio.gather(*pending, return_exceptions=True))
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+
+    loop_thread = threading.Thread(target=run_loop, daemon=True)
+    loop_thread.start()
+    if not started.wait(30):
+        raise AssertionError("the demo server did not start")
+    rs = np.random.RandomState(0)
+    jpegs = []
+    for _ in range(8):
+        buf = io.BytesIO()
+        Image.fromarray(rs.randint(0, 256, (512, 512, 3)).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        jpegs.append(buf.getvalue())
+    encoders_before = dict(server.jpeg_encoder_counts)
+    users = [f"u{i}" for i in range(SERVER_SESSIONS)]
+    outputs = {u: [] for u in users}
+    sent, stop = {}, threading.Event()
+    readers = [threading.Thread(target=mjpeg_reader, args=(port, u, outputs[u], stop),
+                                daemon=True) for u in users]
+    for t in readers:
+        t.start()
+    time.sleep(0.2)
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=server_user, args=(port, u, jpegs, outputs[u], sent),
+                                daemon=True) for u in users]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(SERVER_TIMEOUT_S + 10)
+    wall_s = time.perf_counter() - t0
+    stop.set()
+    for t in readers:
+        t.join(5)
+    loop.call_soon_threadsafe(shutdown[0].set)
+    loop_thread.join(30)
+    if loop_thread.is_alive():
+        raise AssertionError("the demo server's event loop did not stop")
+    per_user = {}
+    for u in users:
+        got = outputs[u]
+        if len(got) < SERVER_OUTPUTS:
+            raise AssertionError(f"demo server: user {u} got {len(got)} outputs of "
+                                 f"{SERVER_OUTPUTS} ({sent.get(u)} frames sent)")
+        for _, jpg in got:
+            arr = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB"))
+            if arr.shape != (512, 512, 3):
+                raise AssertionError(f"demo server: user {u} got a {arr.shape} frame")
+        span = got[-1][0] - got[0][0]
+        per_user[u] = dict(frames_sent=sent.get(u), outputs=len(got),
+                           fps=(len(got) - 1) / span if span > 0 else None)
+    encoders = {k: v - encoders_before[k] for k, v in server.jpeg_encoder_counts.items()}
+    del pipeline, app
+    return dict(sessions=SERVER_SESSIONS, build_s=build_s, wall_s=wall_s, users=per_user,
+                jpeg_encoder=("libjpeg (framepump)" if framepump.available() else "Pillow"),
+                mjpeg_frames_by_encoder=encoders)
+
+
 def main() -> int:
     import torch
 
@@ -1917,6 +2395,7 @@ def main() -> int:
                              f"{MAIN_PATH_LAUNCHES_PER_STEP}")
     main_path = headline(result)
     dev_main = result["device_kernels_per_step"]
+    main_keep = list(kept[0])  # phase 4's stream, for phases 13 and 14
     del result
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
@@ -2037,6 +2516,38 @@ def main() -> int:
     if dev_main != wrapped["device_kernels_per_step"]:
         raise AssertionError(f"the wrapper's step launched {wrapped['device_kernels_per_step']}, "
                              f"phase 4's {dev_main}")
+
+    phase("KL codec at full width: phase 4's configuration with use_tiny_vae=False "
+          "(SD-1.5's AutoencoderKL)")
+    kl, _ = kl_phase(torch, _build, main_keep)
+    report_stream(kl)
+    print(f"KL codec (encode of {kl['codec']['encode_batch']} frames, decode of 1): "
+          f"{json.dumps(kl['codec'])}; TAESD's {json.dumps(kl['taesd_codec'])}; codec share "
+          f"of the KL frame p50 {kl['codec_share_of_frame_p50']:.3f} ({smi})")
+    print(f"beside phase 4: {json.dumps({'main path': main_path, 'KL codec': headline(kl)})}; "
+          f"in turns: {json.dumps(kl['in_turns_with_phase_4'])} ({smi})")
+    if dev_main != {**kl["device_kernels_per_step"], **{k: dev_main[k] for k in NO_TAESD}}:
+        raise AssertionError(f"KL step kernels {kl['device_kernels_per_step']}, phase 4's "
+                             f"{dev_main} but the TAESD convs")
+    del kl
+
+    phase("MultiStream at full width: phase 4's pipeline, S = 2 and 4, both graphs "
+          "captured at construction")
+    multi = multi_phase(torch, _build, main_keep, dev_main)
+    for key, r in multi.items():
+        print(f"MultiStream {key}: " + json.dumps({k: v for k, v in r.items() if k != "profile"}))
+        print(f"MultiStream {key}: round p50 {r['round_ms_p50']:.2f} ms, "
+              f"{r['aggregate_fps']:.2f} frames/s in all against "
+              f"{r['single_stream_fps_in_turns']:.2f} for phase 4's single stream in turns "
+              f"(x{r['aggregate_over_single']:.3f}), masked "
+              f"round x{r['masked_over_plain']:.3f} the plain one, peak memory "
+              f"{r['peak_memory_net_bytes'] / 2**30:.2f} GiB net ({smi})")
+    del main_keep
+
+    phase("demo server over localhost: serve/server.py --sessions 2 at 512x512, two "
+          "WebSocket users")
+    served = server_phase(torch)
+    print(f"demo server: {json.dumps(served)} ({smi})")
 
     # each kernel's launches come from the phase that runs it: the wrappers'
     # counts over that phase's stream (its capture: one step), and the

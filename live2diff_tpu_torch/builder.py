@@ -4,8 +4,9 @@ Port of ``live2diff_tpu/builder.py:build_pipeline``. It resolves the style
 config, ingests the checkpoints it names (SD-1.5's ``unet``, ``vae`` and
 ``text_encoder`` folders, the motion module, a DreamBooth LDM checkpoint,
 the LoRA list, the fused LCM-LoRA, TAESD, DPT-hybrid and textual
-inversions) and builds the UNet, the TAESD codec, the DPT-hybrid depth
-model and, on request, the CLIP text encoder and tokenizer. Every file that
+inversions) and builds the UNet, the codec (TAESD, or SD-1.5's
+AutoencoderKL with ``use_tiny_vae=False``), the DPT-hybrid depth model
+and, on request, the CLIP text encoder and tokenizer. Every file that
 is absent, and every parameter no file supplied, is listed in
 ``missing_artifacts``; such parameters are drawn as N(0, 0.02^2) from a
 ``torch.Generator`` seeded by ``seed``, on the device (as
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .config import ConfigDict, load_config
-from .convert.checkpoint import build_module
+from .convert.checkpoint import build_module, vae_state_dict
 from .convert.ldm import convert_ldm_checkpoint
 from .convert.lora import merge_lora_into_state_dict
 from .convert.state_dict import load_state_dict_file
@@ -33,7 +34,7 @@ from .convert.textual_inversion import apply_textual_inversion
 from .models.midas import DPTConfig, DPTDepthModel
 from .models.text_encoder import CLIPTextModelWithFinalNorm
 from .models.unet import UNet3DConditionModel, UNetConfig
-from .models.vae import TinyAutoencoder
+from .models.vae import AutoencoderKL, TinyAutoencoder, VAEConfig
 from .ops.choices import KernelChoices, Sites
 from .schedule import LCMSchedule
 from .stream.pipeline import StreamConfig, StreamDiffusionDepth
@@ -55,7 +56,7 @@ StateDict = Dict[str, torch.Tensor]
 class BuiltPipeline:
     stream: StreamDiffusionDepth
     unet: UNet3DConditionModel
-    vae: TinyAutoencoder
+    vae: Union[TinyAutoencoder, AutoencoderKL]
     schedule: LCMSchedule
     stream_config: StreamConfig
     depth_model: Optional[DPTDepthModel] = None
@@ -67,8 +68,8 @@ class BuiltPipeline:
     # per-LoRA factors for changing its strength at run time:
     # {path: {"records": [(which, key, up, down, unit)], "fused_alpha": a}}
     lora_runtime: Dict[str, dict] = dataclasses.field(default_factory=dict)
-    # the full KL VAE's checkpoint weights (base folder and DreamBooth), kept
-    # for when AutoencoderKL is ported; TAESD does not use them
+    # the KL VAE's checkpoint weights (base folder and DreamBooth), which
+    # use_tiny_vae=False loads; TAESD does not use them
     vae_sd: StateDict = dataclasses.field(default_factory=dict)
     # wall seconds of the ingest: "read" (files), "lora" (merges), "load"
     # (module builds: copies, casts and placeholder draws)
@@ -204,7 +205,10 @@ def build_pipeline(
     ({path: strength}) adds LoRAs after the config's ``lora_list``; the
     LCM-LoRA (``lcm_lora_path``, else the config's, else
     ``models/loras/lcm-lora-sdv1-5.safetensors``) is fused last unless
-    ``use_lcm_lora=False``. ``param_dtype`` is the JAX argument: the port
+    ``use_lcm_lora=False``. ``use_tiny_vae=False`` builds SD-1.5's
+    ``AutoencoderKL`` (from the base ``vae/`` folder and the DreamBooth
+    checkpoint's VAE part, latents scaled by 0.18215) in place of TAESD.
+    ``param_dtype`` is the JAX argument: the port
     keeps parameters in the compute dtype, so it may only name ``dtype``.
     Runs on the card unless ``device`` says otherwise.
 
@@ -223,10 +227,6 @@ def build_pipeline(
       (``spatial``, ``temporal``, ``vit``) that launch the LayerNorm kernel;
       ``vit`` by default.
     """
-    if not use_tiny_vae:
-        raise NotImplementedError(
-            "AutoencoderKL is not ported yet (ROADMAP.md queue 1, item 5: use_tiny_vae=False)"
-        )
     if param_dtype is not None and param_dtype != dtype:
         raise ValueError(f"param_dtype {param_dtype}: the port keeps parameters in the compute "
                          f"dtype ({dtype})")
@@ -245,7 +245,9 @@ def build_pipeline(
     if isinstance(kv_cache_dtype, str):
         kv_cache_dtype = _DTYPES[kv_cache_dtype]
     scfg = StreamConfig(
-        height=height, width=width, vae_scaling=1.0, do_add_noise=do_add_noise,
+        # TAESD takes and gives scaled latents; the KL codec SD-1.5's own
+        height=height, width=width, vae_scaling=1.0 if use_tiny_vae else 0.18215,
+        do_add_noise=do_add_noise,
         cache_dtype=kv_cache_dtype or dtype, output_uint8=output_uint8,
     )
 
@@ -257,8 +259,13 @@ def build_pipeline(
     unet = build_module(lambda: UNet3DConditionModel(unet_cfg, kernels), device, dtype,
                         generator, unet_sd or None, missing)
     del unet_sd
-    taesd_sd = _file_state_dict(cfg.get("taesd_path", DEFAULT_TAESD), missing, timing)
-    vae = build_module(TinyAutoencoder, device, dtype, generator, taesd_sd, missing)
+    if use_tiny_vae:
+        taesd_sd = _file_state_dict(cfg.get("taesd_path", DEFAULT_TAESD), missing, timing)
+        vae = build_module(TinyAutoencoder, device, dtype, generator, taesd_sd, missing)
+    else:
+        # SD-1.5's own codec at its own widths, whatever the UNet's overrides
+        vae = build_module(lambda: AutoencoderKL(VAEConfig()), device, dtype, generator,
+                           vae_state_dict(vae_sd) if vae_sd else None, missing)
     depth_model = None
     if use_depth:
         dpt_sd = _file_state_dict(cfg.get("depth_model_path"), missing, timing)

@@ -3,9 +3,10 @@
 The port's counterpart of the JAX builder's key maps plus
 ``_merge_into_shapes`` (``live2diff_tpu/builder.py:451-471``). The port's
 modules already carry the checkpoint names (diffusers / AnimateDiff for
-the UNet, ``encoder.N`` / ``decoder.N`` for TAESD, the MiDaS names for the
-DPT, HF ``text_model.*`` for CLIP), so nothing is renamed here: each
-module parameter takes the tensor of its own name. A key that names no
+the UNet, diffusers ``vae/`` for the KL codec, ``encoder.N`` /
+``decoder.N`` for TAESD, the MiDaS names for the DPT, HF ``text_model.*``
+for CLIP), so each module parameter takes the tensor of its own name. The
+one rename is ``vae_state_dict``'s, for older diffusers VAE files. A key that names no
 parameter is not used; that covers what the JAX maps drop (the motion
 modules' ``pos_encoder.pe`` tables, the DPT's unused
 ``scratch.refinenet4.resConfUnit1``, HF's ``position_ids``).
@@ -18,12 +19,36 @@ from the pipeline's generator as N(0, 0.02^2).
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 PLACEHOLDER_SCALE = 0.02
+
+# older diffusers VAE files name the mid-block attention's projections so,
+# and may store them as 1x1 convs (live2diff_tpu/convert/torch_to_flax.py:308-313)
+_OLD_VAE_ATTENTION = re.compile(
+    r"^(.*\.attentions\.\d+)\.(query|key|value|proj_attn)\.(weight|bias)$")
+_OLD_VAE_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+_VAE_LINEAR = re.compile(r"\.attentions\.\d+\.(to_q|to_k|to_v|to_out\.0)\.weight$")
+
+
+def vae_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A diffusers ``vae/`` state dict in the port's ``AutoencoderKL`` names:
+    ``query``/``key``/``value``/``proj_attn`` become ``to_q``/``to_k``/
+    ``to_v``/``to_out.0``, and a ``[C, C, 1, 1]`` projection weight the
+    linear's ``[C, C]``."""
+    out = {}
+    for key, t in sd.items():
+        m = _OLD_VAE_ATTENTION.match(key)
+        if m:
+            key = f"{m.group(1)}.{_OLD_VAE_NAMES[m.group(2)]}.{m.group(3)}"
+        if _VAE_LINEAR.search(key) and t.dim() == 4:
+            t = t[:, :, 0, 0]
+        out[key] = t
+    return out
 
 
 def load_into(module: nn.Module, sd: Dict[str, torch.Tensor], missing: List[str]

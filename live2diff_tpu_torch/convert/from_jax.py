@@ -2,7 +2,7 @@
 
 Carries the JAX package's weights across to the port, so the tests can run
 both on the same parameters. The port's modules are named after the
-diffusers / AnimateDiff / TAESD checkpoint keys, which the JAX package's
+diffusers / AnimateDiff / TAESD / KL-VAE checkpoint keys, which the JAX package's
 own torch->flax converter maps from; this is the inverse of that map:
 
   Dense kernel [in, out]         -> Linear weight [out, in]
@@ -10,7 +10,8 @@ own torch->flax converter maps from; this is the inverse of that map:
   norm scale                     -> weight
   Flax wrapper levels (InflatedConv's ``conv``, InflatedGroupNorm's
   ``norm``) are dropped; flattened names (``down_blocks_0_resnets_1``,
-  ``to_out_0``, ``layers_5``) become dotted torch paths.
+  ``to_out_0``, ``layers_5``, the KL VAE's
+  ``down_blocks_0_downsamplers_0_conv``) become dotted torch paths.
 
 The DPT depth model's tree takes ``dpt_torch_key`` instead: the inverse of
 ``live2diff_tpu/convert/midas.py:dpt_key_map``, onto the MiDaS checkpoint
@@ -30,6 +31,9 @@ import torch
 _RENAMES = (
     (re.compile(r"^(down_blocks|up_blocks)_(\d+)_motion_modules_(\d+)$"),
      r"\1.\2.motion_modules.\3.temporal_transformer"),
+    # the KL VAE's resampling convs, one flax module each
+    (re.compile(r"^(down_blocks|up_blocks)_(\d+)_(downsamplers|upsamplers)_0_conv$"),
+     r"\1.\2.\3.0.conv"),
     (re.compile(r"^(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)$"),
      r"\1.\2.\3.\4"),
     (re.compile(r"^mid_block_(resnets|attentions)_(\d+)$"), r"mid_block.\1.\2"),

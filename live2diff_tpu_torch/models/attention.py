@@ -6,6 +6,12 @@ through ``ops.attention.dot_product_attention``, so on the card both the
 self- and the cross-attention launch a flash kernel: the self-attention the
 pipeline's ``flash_variant`` where the flash gate passes (S >= 1024), the
 d-major kernel elsewhere.
+
+``cross_frame_attention`` is the original's ``SparseCausalAttention``: over
+a clip of ``video_length`` > 1 frames (the warmup), each frame's
+self-attention keys are those of frame 0 of its clip, its values its own
+(``live2diff_tpu/models/attention.py:64-69``); over one frame (stream
+mode) it is ordinary self-attention.
 """
 
 from __future__ import annotations
@@ -25,19 +31,14 @@ class CrossAttention(nn.Module):
     """Multi-head attention with an optional cross-attention source; q/k/v
     carry no bias, the output projection does (diffusers ``Attention``). A
     self-attention takes ``kernels.flash_variant``; a cross-attention the
-    d-major kernel."""
+    d-major kernel. ``cross_frame`` takes the keys of each clip's frame 0."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, cross_frame: bool = False,
                  kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        if cross_frame:
-            raise NotImplementedError(
-                "SparseCausalAttention (unet_use_cross_frame_attention=True) is not "
-                "ported; no shipped config enables it"
-            )
         inner = heads * dim_head
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.cross_frame = heads, dim_head, cross_frame
         self.flash_variant = "dmajor" if cross_attention_dim else kernels.flash_variant
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
@@ -45,15 +46,24 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, hidden_states: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                video_length: Optional[int] = None) -> torch.Tensor:
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+        k = self.to_k(ctx)  # [B*F, S, inner]
+        if self.cross_frame:
+            if video_length is None:
+                raise ValueError("cross-frame attention needs video_length")
+            if video_length > 1:
+                bf, s, c = k.shape
+                k = k.reshape(bf // video_length, video_length, s, c)[:, :1]
+                k = k.expand(-1, video_length, -1, -1).reshape(bf, s, c)
 
         def split_heads(x):
             return x.reshape(*x.shape[:-1], self.heads, self.dim_head)
 
         out = dot_product_attention(
             split_heads(self.to_q(hidden_states)),
-            split_heads(self.to_k(ctx)),
+            split_heads(k),
             split_heads(self.to_v(ctx)),
             flash_variant=self.flash_variant,
         )
@@ -74,8 +84,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = FusedLayerNorm(dim, 1e-5, site="spatial", kernels=kernels)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                video_length: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x), video_length=video_length)
         x = x + self.attn2(self.norm2(x), encoder_hidden_states)
         return x + self.ff(self.norm3(x))
 
@@ -107,6 +118,6 @@ class Transformer3DModel(nn.Module):
         x = F.linear(x, self.proj_in.weight[:, :, 0, 0], self.proj_in.bias)
         ctx = encoder_hidden_states.repeat_interleave(f, dim=0)  # text repeats per frame
         for block in self.transformer_blocks:
-            x = block(x, ctx)
+            x = block(x, ctx, video_length=f)
         x = F.linear(x, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias)
         return x.reshape(b, f, h, w, c) + hidden_states

@@ -56,7 +56,8 @@ class UNetConfig:
     motion_pe_max_len: int = 24
     window_size: int = 16
     sink_size: int = 8
-    # SparseCausalAttention: off in every shipped config, not ported
+    # SparseCausalAttention in the spatial self-attentions; off in every
+    # shipped config
     unet_use_cross_frame_attention: bool = False
 
     @property
@@ -194,10 +195,6 @@ class UNet3DConditionModel(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig(),
                  kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        if config.unet_use_cross_frame_attention:
-            raise NotImplementedError(
-                "unet_use_cross_frame_attention (SparseCausalAttention) is not ported"
-            )
         self.config = cfg = config
         ch = cfg.block_out_channels
         temb = ch[0] * 4
@@ -210,6 +207,7 @@ class UNet3DConditionModel(nn.Module):
             return Transformer3DModel(
                 c, cfg.attention_head_dim, c // cfg.attention_head_dim,
                 cross_attention_dim=cfg.cross_attention_dim,
+                cross_frame_attention=cfg.unet_use_cross_frame_attention,
                 norm_num_groups=cfg.norm_num_groups, kernels=kernels,
             )
 

@@ -35,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
-from typing import List, Optional, Set, Tuple
+from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -46,6 +46,27 @@ def state_tensors(state: StreamState) -> List[torch.Tensor]:
     """Every tensor of ``state`` that the step reads and writes."""
     return [state.attn_mask, state.pe_idx, state.update_idx, *cache_tensors(state.kv_caches),
             state.x_t_buffer, state.depth_buffer]
+
+
+def capture_graph(fn: Callable[[], torch.Tensor], generators: Sequence[torch.Generator],
+                  pool) -> Tuple["torch.cuda.CUDAGraph", torch.Tensor, float]:
+    """Capture ``fn()`` (which must read and write only static buffers) in
+    a CUDA graph that draws from ``generators``: (graph, the output ``fn``
+    returned, which each replay overwrites, wall seconds). A capture records
+    the kernels and runs none. Raises if capture fails."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    t0 = time.perf_counter()
+    # The flash, conv and stream-attention wrappers encode their TMA
+    # tensor maps on the host at each launch and pass them as kernel
+    # parameters: the graph keeps the maps made here, which name the
+    # static buffers, so they stay right at every replay and nothing is
+    # encoded again. thread_local: an uploader thread (PipelinedStream)
+    # may copy on its own stream during a capture.
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out, time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -102,23 +123,14 @@ class StepGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         cfg = pipe.cfg
         frame = torch.zeros((cfg.height, cfg.width, 3), dtype=frame_dtype, device=pipe.device)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
         tensors = state_tensors(state)
-        t0 = time.perf_counter()
-        # The flash, conv and stream-attention wrappers encode their TMA
-        # tensor maps on the host at each launch and pass them as kernel
-        # parameters: the graph keeps the maps made here, which name the
-        # static buffers above, so they stay right at every replay and
-        # nothing is encoded again. thread_local: an uploader thread
-        # (PipelinedStream) may copy on its own stream during a capture.
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            _, out = pipe._frame_step(state, frame, pipe._prompt_embeds)
+        graph, out, seconds = capture_graph(
+            lambda: pipe._frame_step(state, frame, pipe._prompt_embeds)[1],
+            (state.generator,), self._pool)
         captured = CapturedStep(
             graph=graph, generator=state.generator,
             pointers=tuple(t.data_ptr() for t in tensors),
-            refs=[weakref.ref(t) for t in tensors], frame=frame, out=out,
-            capture_s=time.perf_counter() - t0)
+            refs=[weakref.ref(t) for t in tensors], frame=frame, out=out, capture_s=seconds)
         self.graphs.append(captured)
         return captured
 

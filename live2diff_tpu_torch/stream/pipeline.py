@@ -2,9 +2,9 @@
 
 Port of ``live2diff_tpu/stream/pipeline.py``. One streamed frame is:
 
-    depth (DPT at 384x384) -> one encode (TAESD) of frame and depth image ->
-    stream-batch UNet over the n denoising steps -> LCM consistency step ->
-    decode (TAESD)
+    depth (DPT at 384x384) -> one encode (TAESD or the KL codec) of frame
+    and depth image -> stream-batch UNet over the n denoising steps -> LCM
+    consistency step -> decode
 
 Without a depth model the depth latents are zeros (the depth-mapping
 branch of the UNet still runs) and the encode takes the frame alone.
@@ -14,6 +14,12 @@ denoising steps of ``n`` consecutive frames, the new frame at the noisiest
 timestep plus the n-1 buffered latents, so each frame costs one UNet call
 and outputs lag inputs by n-1 frames. ``prepare`` runs the warmup program
 that encodes 8 frames and fills every step row of the KV caches.
+
+The step is written for S sessions at once (``_session_step`` over a
+stacked state, ``stream/multi.py``): one encode of the S frames (and their
+S depth images), one UNet call at batch S * n, one decode, each session's
+depth normalised and its noise drawn on its own. A single stream is the
+case S = 1, on views of its state.
 
 The step writes the whole state in place (the port's counterpart of the
 JAX package's ``donate_argnums=(1,)``): the state it returns holds the very
@@ -31,20 +37,31 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.midas import DPTDepthModel, resize_nhwc
 from ..models.unet import UNet3DConditionModel
-from ..models.vae import TinyAutoencoder
+from ..models.vae import AutoencoderKL, TinyAutoencoder
 from ..schedule import LCMSchedule
 from .graph import StepGraphs
-from .state import StreamState, cache_tensors
+from .state import StreamState, as_sessions, cache_tensors
 from .state_machine import init_window_state, mask_to_bias, update_window_state
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
+# one noise function a session, or None for the sessions' generators
+Noises = Optional[Sequence[NoiseFn]]
+
+
+def _prepend(new: torch.Tensor, buffer: torch.Tensor) -> torch.Tensor:
+    """``[S, h, w, c]`` and ``[S, n - 1, h, w, c]`` -> ``[S, n, h, w, c]``, as
+    one 4-D cat: CUDA's cat copies every input in one launch up to 4 dims,
+    and one launch an input beyond."""
+    s, h, w, c = new.shape
+    out = torch.cat([new.view(s, 1, h * w, c), buffer.view(s, -1, h * w, c)], dim=1)
+    return out.view(s, -1, h, w, c)
 
 
 @dataclasses.dataclass
@@ -70,8 +87,8 @@ class StreamConfig:
 
 
 class StreamDiffusionDepth:
-    """Runs the UNet, TAESD and (optional) DPT modules as the stream's warmup
-    and frame steps.
+    """Runs the UNet, the codec (TAESD or AutoencoderKL) and the optional
+    DPT as the stream's warmup and frame steps.
 
     ``dtype`` is the modules' compute dtype; latents, schedule math, the
     depth normalisation and the stream buffers stay fp32, as in the JAX
@@ -84,7 +101,7 @@ class StreamDiffusionDepth:
     def __init__(
         self,
         unet: UNet3DConditionModel,
-        vae: TinyAutoencoder,
+        vae: Union[TinyAutoencoder, AutoencoderKL],
         schedule: LCMSchedule,
         stream_config: StreamConfig,
         device: torch.device,
@@ -104,6 +121,7 @@ class StreamDiffusionDepth:
         self.sub_timesteps = torch.as_tensor(
             np.asarray(schedule.sub_timesteps, np.int64), device=self.device
         )
+        self._timesteps: Dict[int, torch.Tensor] = {1: self.sub_timesteps}
         self._prompt_embeds: Optional[torch.Tensor] = None
         self._graphs = StepGraphs()
 
@@ -147,44 +165,67 @@ class StreamDiffusionDepth:
                              f"stream's prompt buffer is {tuple(self._prompt_embeds.shape)}")
         self._prompt_embeds.copy_(embeds.expand(shape))
 
-    def _randn(self, state: StreamState, shape, noise: Optional[NoiseFn]) -> torch.Tensor:
-        if noise is not None:
-            return noise(tuple(shape)).to(device=self.device, dtype=torch.float32)
-        return torch.randn(shape, generator=state.generator, device=self.device)
+    def _randn(self, generators: Sequence[torch.Generator], shape, noises: Noises
+               ) -> torch.Tensor:
+        """Each session's draw of ``shape`` from its own generator (or noise
+        function), in session order, concatenated on the first axis."""
+        if noises is not None:
+            draws = [fn(tuple(shape)).to(device=self.device, dtype=torch.float32)
+                     for fn in noises]
+        else:
+            draws = [torch.randn(shape, generator=g, device=self.device) for g in generators]
+        return draws[0] if len(draws) == 1 else torch.cat(draws)
+
+    def _step_timesteps(self, sessions: int) -> torch.Tensor:
+        """``sub_timesteps`` once a session, [S * n], made once an S."""
+        t = self._timesteps.get(sessions)
+        if t is None:
+            t = self._timesteps[sessions] = self.sub_timesteps.repeat(sessions)
+        return t
 
     # ------------------------------------------------------------------
     # latent codecs
     # ------------------------------------------------------------------
 
-    def _depth_image(self, frames_rgb: torch.Tensor) -> torch.Tensor:
+    def _depth_image(self, frames_rgb: torch.Tensor, sessions: int = 1) -> torch.Tensor:
         """[F, H, W, 3] in [-1, 1] -> 3-channel depth image in [-1, 1], fp32.
 
         Bilinear (no antialiasing) down to 384x384, the DPT, min-max
-        normalisation over the whole batch (every frame of ``prepare``'s
-        warmup together), replicated to 3 channels, and resized back to
-        H x W."""
+        normalisation over each session's frames (the F frames are
+        ``sessions`` equal groups, session-major: every frame of
+        ``prepare``'s warmup together, or one frame a session, as the JAX
+        package's ``vmap`` over sessions gives it), replicated to 3
+        channels, and resized back to H x W."""
         f, h, w, _ = frames_rgb.shape
         depth_in = resize_nhwc(frames_rgb.float(), self.DEPTH_SIZE, self.DEPTH_SIZE)
         depth = self.depth_model(depth_in.to(self.dtype)).float()  # [F, 384, 384]
-        dmin, dmax = depth.min(), depth.max()
-        depth = (depth - dmin) / (dmax - dmin + 1e-6)
+        if sessions == 1:
+            dmin, dmax = depth.min(), depth.max()
+            depth = (depth - dmin) / (dmax - dmin + 1e-6)
+        else:
+            per = depth.reshape(sessions, -1, *depth.shape[1:])  # [S, F / S, 384, 384]
+            dmin = per.amin(dim=(1, 2, 3), keepdim=True)
+            dmax = per.amax(dim=(1, 2, 3), keepdim=True)
+            depth = ((per - dmin) / (dmax - dmin + 1e-6)).reshape(depth.shape)
         depth3 = depth[..., None].expand(f, self.DEPTH_SIZE, self.DEPTH_SIZE, 3) * 2.0 - 1.0
         return resize_nhwc(depth3, h, w)
 
-    def _encode_frame_and_depth(self, state, frames_rgb: torch.Tensor, noise):
-        """[F, H, W, 3] in [-1, 1] -> (x_t noised at t0, depth latents).
+    def _encode_frame_and_depth(self, generators, frames_rgb: torch.Tensor, noises: Noises):
+        """[F, H, W, 3] in [-1, 1], the frames of ``len(generators)``
+        sessions session-major -> (x_t noised at t0, depth latents).
 
         With a depth model, frames and depth images go through ONE batched
         encode (frames first) and the latents are split after it; without
         one the depth latents are zeros."""
-        f = frames_rgb.shape[0]
+        f, sessions = frames_rgb.shape[0], len(generators)
         if self.depth_model is not None:
-            frames_rgb = torch.cat([frames_rgb.float(), self._depth_image(frames_rgb)], dim=0)
+            frames_rgb = torch.cat(
+                [frames_rgb.float(), self._depth_image(frames_rgb, sessions)], dim=0)
         lat = self.vae.encode(frames_rgb.to(self.dtype).contiguous()).float()
         lat = lat * self.cfg.vae_scaling
         latents = lat[:f]
         depth_lat = lat[f:] if self.depth_model is not None else torch.zeros_like(latents)
-        eps = self._randn(state, latents.shape, noise)
+        eps = self._randn(generators, (f // sessions, *latents.shape[1:]), noises)
         x_t = self.alpha[0] * latents + self.beta[0] * eps
         return x_t, depth_lat
 
@@ -209,68 +250,85 @@ class StreamDiffusionDepth:
     # the two programs
     # ------------------------------------------------------------------
 
-    def _unet_apply(self, x_t, depth, state: StreamState, prompt_embeds):
-        out, new_caches = self.unet(
-            x_t[:, None].to(self.dtype),
-            self.sub_timesteps,
-            prompt_embeds,
-            depth[:, None].to(self.dtype),
-            state.kv_caches,
-            "stream",
-            mask_to_bias(state.attn_mask),
-            state.pe_idx,
-            state.update_idx,
-        )
-        return out[:, 0].float(), new_caches
-
     @torch.no_grad()
-    def _frame_step(self, state: StreamState, frame_rgb: torch.Tensor, prompt_embeds,
-                    noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
-        """One streamed frame: encode -> stream-batch UNet -> LCM -> decode.
+    def _session_step(self, states: StreamState, frames_rgb: torch.Tensor, prompt_embeds,
+                      noises: Noises = None) -> torch.Tensor:
+        """One streamed frame for each of S sessions: encode -> stream-batch
+        UNet at batch S * n -> LCM -> decode.
 
-        Writes every tensor of ``state`` in place and returns a state that
-        holds the same tensors, with ``frame_idx`` advanced."""
+        ``states`` is stacked (``[S, ...]`` tensors, S generators),
+        ``frames_rgb`` ``[S, H, W, 3]``, ``prompt_embeds`` ``[S * n, L, D]``
+        (session-major) and ``noises`` one noise function a session. Every
+        tensor of ``states`` is written in place; each session draws from
+        its own generator the numbers, in the order and shapes, that its
+        single-session step draws. Returns the ``[S, H, W, 3]`` outputs;
+        ``frame_idx`` is the caller's."""
         cfg, n = self.cfg, self.num_steps
-        if frame_rgb.dtype == torch.uint8:
-            frame_rgb = frame_rgb.float() / 127.5 - 1.0
-        x_t_new, depth_new = self._encode_frame_and_depth(state, frame_rgb[None], noise)
-        if n > 1:
-            x_t = torch.cat([x_t_new, state.x_t_buffer], dim=0)
-            depth = torch.cat([depth_new, state.depth_buffer], dim=0)
+        sessions = frames_rgb.shape[0]
+        if frames_rgb.dtype == torch.uint8:
+            frames_rgb = frames_rgb.float() / 127.5 - 1.0
+        x_t_new, depth_new = self._encode_frame_and_depth(states.generator, frames_rgb, noises)
+        if n > 1:  # [S, n, h, w, 4]: the new frame first, then the buffered ones
+            x_t = _prepend(x_t_new, states.x_t_buffer)
+            depth = _prepend(depth_new, states.depth_buffer)
         else:
-            x_t, depth = x_t_new, depth_new
+            x_t, depth = x_t_new[:, None], depth_new[:, None]
 
-        model_pred, new_caches = self._unet_apply(x_t, depth, state, prompt_embeds)
-        if any(a is not b for a, b in zip(cache_tensors(new_caches),
-                                          cache_tensors(state.kv_caches))):
+        def rows(t):  # [S, n, ...] -> the S * n step rows: a view, never a copy
+            return t.view(sessions * n, *t.shape[2:])
+
+        caches = tuple(tuple(rows(t) for t in c) if isinstance(c, tuple) else rows(c)
+                       for c in states.kv_caches)
+        out, new_caches = self.unet(
+            rows(x_t)[:, None].to(self.dtype),
+            self._step_timesteps(sessions),
+            prompt_embeds,
+            rows(depth)[:, None].to(self.dtype),
+            caches,
+            "stream",
+            mask_to_bias(rows(states.attn_mask)),
+            rows(states.pe_idx),
+            rows(states.update_idx),
+        )
+        if any(a is not b for a, b in zip(cache_tensors(new_caches), cache_tensors(caches))):
             raise RuntimeError("the UNet returned new KV cache tensors: the stream step "
                                "needs them written in place")
-        x0_batch = self._scheduler_step_batch(model_pred, x_t)
-        window = (state.attn_mask, state.pe_idx, state.update_idx)
+        model_pred = out[:, 0].float().reshape(x_t.shape)
+        x0_batch = self._scheduler_step_batch(model_pred, x_t)  # [S, n, h, w, 4]
+        window = tuple(rows(t) for t in (states.attn_mask, states.pe_idx, states.update_idx))
         update_window_state(*window, self.unet.config.sink_size, out=window)
 
         if n > 1:
-            x0_out = x0_batch[-1]
             # the latent buffers are written in place by the op that makes them
             if cfg.do_add_noise:
-                eps = self._randn(state, x0_batch[:-1].shape, noise)
-                torch.add(self.alpha[1:] * x0_batch[:-1], self.beta[1:] * eps,
-                          out=state.x_t_buffer)
+                eps = self._randn(states.generator, (n - 1, *x0_batch.shape[2:]), noises)
+                torch.add(self.alpha[1:] * x0_batch[:, :-1],
+                          self.beta[1:] * eps.reshape(states.x_t_buffer.shape),
+                          out=states.x_t_buffer)
             else:
-                torch.mul(self.alpha[1:], x0_batch[:-1], out=state.x_t_buffer)
-            state.depth_buffer.copy_(depth[:-1])
-        else:
-            x0_out = x0_batch[0]
+                torch.mul(self.alpha[1:], x0_batch[:, :-1], out=states.x_t_buffer)
+            states.depth_buffer.copy_(depth[:, :-1])
+        return self._decode_latents(x0_batch[:, -1])
 
-        out_rgb = self._decode_latents(x0_out[None])[0]
-        return dataclasses.replace(state, frame_idx=state.frame_idx + 1), out_rgb
+    def _frame_step(self, state: StreamState, frame_rgb: torch.Tensor, prompt_embeds,
+                    noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
+        """One streamed frame: ``_session_step`` for one session, on views
+        of ``state``. Writes every tensor of ``state`` in place and returns
+        a state that holds the same tensors, with ``frame_idx`` advanced."""
+        out = self._session_step(as_sessions(state), frame_rgb[None], prompt_embeds,
+                                 None if noise is None else (noise,))
+        return dataclasses.replace(state, frame_idx=state.frame_idx + 1), out[0]
 
     @torch.no_grad()
     def _warmup_denoise(self, state: StreamState, warmup_rgb: torch.Tensor, prompt_embeds,
                         noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
         """Encode the warmup frames and run the denoise loop with
-        bidirectional temporal attention, filling every step row's cache."""
-        x_t, depth = self._encode_frame_and_depth(state, warmup_rgb, noise)
+        bidirectional temporal attention, filling every step row's cache.
+        uint8 frames are taken as the step takes them (``/ 127.5 - 1``)."""
+        if warmup_rgb.dtype == torch.uint8:
+            warmup_rgb = warmup_rgb.float() / 127.5 - 1.0
+        x_t, depth = self._encode_frame_and_depth(
+            (state.generator,), warmup_rgb, None if noise is None else (noise,))
         caches = state.kv_caches
         sample = x_t[None].to(self.dtype)  # [1, F, h, w, 4]
         depth5 = depth[None].to(self.dtype)
@@ -286,7 +344,8 @@ class StreamDiffusionDepth:
             f_theta = (x_cur - self.beta[idx] * model_pred) / self.alpha[idx]
             x0 = self.c_out[idx] * f_theta + self.c_skip[idx] * x_cur
             if idx < self.num_steps - 1:
-                eps = self._randn(state, x0.shape, noise)
+                eps = self._randn((state.generator,), x0.shape,
+                                  None if noise is None else (noise,))
                 sample = (self.alpha[idx + 1] * x0 + self.beta[idx + 1] * eps)[None].to(self.dtype)
         out_rgb = self._decode_latents(x0)
         return dataclasses.replace(state, kv_caches=tuple(caches)), out_rgb
@@ -297,7 +356,7 @@ class StreamDiffusionDepth:
 
     def prepare(self, warmup_frames, prompt_embeds: torch.Tensor, seed: int = 2,
                 noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
-        """warmup_frames: [8, H, W, 3] float in [-1, 1]. Returns the filled
+        """warmup_frames: [8, H, W, 3] float in [-1, 1] or uint8. Returns the filled
         state and the warmup frames' outputs. Runs eagerly (once a stream);
         on CUDA it first releases the graphs of states the caller dropped."""
         if self.device.type == "cuda":

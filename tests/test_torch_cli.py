@@ -2,7 +2,8 @@
 the JAX one): ``--tiny --device cpu`` over a folder of PNG frames twice
 with one seed writes two identical GIFs (decode, the warmup split, the
 stream lag, the writer); a video of no more than the warmup's 8 frames
-exits with 2; and the CLI asks for the card unless told otherwise.
+exits with 2; the CLI asks for the card unless told otherwise; and
+``--no-tiny-vae`` streams with the KL codec.
 """
 
 from __future__ import annotations
@@ -49,3 +50,21 @@ def test_cli_rejects_short_video(tmp_path):
 def test_cli_defaults_to_the_card():
     args = cli.build_argparser().parse_args(["v", "c.yaml", "--tiny"])
     assert args.device == "cuda"
+
+
+def test_cli_streams_with_the_kl_codec(frame_dir, tmp_path, monkeypatch):
+    """--no-tiny-vae builds SD-1.5's AutoencoderKL in place of TAESD."""
+    from live2diff_tpu_torch import wrapper
+    from live2diff_tpu_torch.models.vae import AutoencoderKL
+
+    built = []
+    build = wrapper.build_pipeline
+    monkeypatch.setattr(wrapper, "build_pipeline", lambda *a, **kw: built.append(
+        build(*a, **kw)) or built[-1])
+    out = tmp_path / "kl.gif"
+    rc = cli.main([str(frame_dir), "configs/toonyou.yaml", "--tiny", "--device", "cpu",
+                   "--no-tiny-vae", "--output", str(out)])
+    assert rc == 0 and out.exists()
+    assert isinstance(built[0].vae, AutoencoderKL)
+    with Image.open(out) as gif:
+        assert gif.n_frames == 3 and gif.size == (64, 64)

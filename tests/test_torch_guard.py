@@ -85,12 +85,31 @@ def test_build_pipeline_refuses_to_fall_back_to_the_cpu(monkeypatch):
         build_pipeline({"t_index_list": [30, 40]})
 
 
-def test_build_pipeline_depth_raises_with_the_roadmap_item():
-    """Depth is ported; the full KL codec is not, and says where it stands."""
+def test_build_pipeline_builds_the_kl_codec_on_cpu():
+    """use_tiny_vae=False builds SD-1.5's AutoencoderKL at its own widths,
+    its parameters drawn as N(0, 0.02^2) (no file names them), with the KL
+    latent scaling."""
     from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        build_pipeline({"t_index_list": [30, 40]}, use_tiny_vae=False, device="cpu")
+    tiny = dict(block_out_channels=(8, 16, 16, 16), attention_head_dim=2,
+                norm_num_groups=4, motion_num_attention_heads=2)
+    built = build_pipeline({"t_index_list": [30, 40]}, use_tiny_vae=False, device="cpu",
+                           use_depth=False, unet_overrides=tiny)
+    assert isinstance(built.vae, AutoencoderKL) and built.stream.vae is built.vae
+    assert built.vae.config == VAEConfig()
+    assert built.stream.cfg.vae_scaling == 0.18215
+    w = built.vae.decoder.up_blocks[3].resnets[2].conv2.weight.float()
+    assert abs(float(w.std()) - 0.02) < 1e-3
+    assert all(p.device.type == "cpu" and p.dtype == torch.bfloat16
+               for p in built.vae.parameters())
+
+
+def test_port_sources_import_nothing_of_the_demo():
+    """The demo server's protocol code is the port's own copy."""
+    pattern = re.compile(r"^\s*(import|from)\s+(demo|server)\b|sys\.path.*demo", re.M)
+    offenders = [path for path in _port_sources() if pattern.search(open(path).read())]
+    assert not offenders, offenders
 
 
 def test_wrappers_run_the_plain_version_on_cpu_tensors(monkeypatch):
