@@ -132,6 +132,27 @@ Phases, each printed as it ends; any failure exits non-zero:
    then one at a time) until 16 MJPEG outputs each came back, decoded and
    shape-checked. Prints each user's fps and which encoder (framepump's
    libjpeg or Pillow) wrote the MJPEG frames.
+16. training: motion-module training at the JAX trainer's full-width
+   defaults (``UNetConfig()``, ``VAEConfig()``, 256x256, batch 2, clip 4,
+   lr 1e-4, weight decay 0.01, fp32, random weights from seed 0, synthetic
+   clips). First phase 3's narrow UNet with its depth branch: one loss and
+   its backward on the card against fp32 on the CPU (same weights, clips,
+   t and noise; the loss and the motion gradients within 1e-3 relative
+   RMS). Then ``Trainer`` on the card: one step logs every shape the
+   attention is given; 20 more steps are counted (72 forward and 70
+   backward launches of the fp32 training kernels a step, no other hand
+   kernel) and timed (step p50 / p90 on the host clock, synchronised,
+   clips a second, peak memory), 3 profiled (device ms a step, the device
+   share, the attention kernels' share, the device kernels by name); every
+   loss finite, every frozen parameter and the VAE bit-equal, every motion
+   parameter moved; a save, a resume into a fresh ``Trainer`` (the state
+   restored bit for bit) and 2 more steps in both (losses within 1e-5).
+   Then both training kernels against their plain versions at every shape
+   the step logged (O and lse, dq, dk and dv within 1e-4 of the plain
+   version's largest value), with their times, the plain versions', SDPA's
+   forward and backward in fp32 (a yardstick the port never calls) and the
+   bound (bytes; 4 N H Sq Sk D operations forward and 10 backward at 67
+   TFLOP/s of fp32; the exponentials). Prints the TF32 settings in force.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -143,6 +164,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -178,6 +200,9 @@ DEVICE_KERNELS = {
     "conv3x3_s2": (r"conv3x3_sm90<2, ",),
     "layer_norm": (r"layer_norm_kernel<",),
     "group_norm": (r"group_norm_kernel<",),
+    "flash_train_fwd": (r"flash_train_fwd_kernel<",),
+    "flash_train_bwd": (r"flash_train_delta_kernel\(", r"flash_train_dkdv_kernel<",
+                        r"flash_train_dq_kernel<"),
 }
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
@@ -208,7 +233,9 @@ SMAJOR_FRAMES = 8
 LN_FRAMES = 4
 INTERLEAVED_ROUNDS = 30
 # the three opt-in kernels: none of them on bench.py's main path
-OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0, "group_norm": 0}
+OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0, "group_norm": 0,
+              # nor the training kernels, on any path but phase 16's
+              "flash_train_fwd": 0, "flash_train_bwd": 0}
 # launches per stream step with depth: flash 32 in the UNet + 12 in the ViT;
 # the one batched encode of frame and depth image keeps the conv counts
 EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 44,
@@ -1162,6 +1189,10 @@ def profile_device(torch, call, n):
     for e in prof.key_averages():  # device-side events only: the kernels
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        # a range annotated on the host (the optimizer's step) is also
+        # recorded on the device around the kernels it launched: not a kernel
+        if getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."):
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
@@ -1171,11 +1202,13 @@ def profile_device(torch, call, n):
     device_ms = sum(r[0] for r in rows)
     by_wrapper = {name: [sum(r[1] for r in rows if re.search(pat, r[2])) for pat in pats]
                   for name, pats in DEVICE_KERNELS.items()}
+    ms_by_wrapper = {name: [sum(r[0] for r in rows if re.search(pat, r[2])) for pat in pats]
+                     for name, pats in DEVICE_KERNELS.items()}
     return dict(
         calls=n, wall_ms_per_call=wall_ms,
         device_ms_per_call=device_ms if rows else "not measured",
         kernels_per_call=sum(r[1] for r in rows) if rows else "not measured",
-        device_kernels_per_call=by_wrapper,
+        device_kernels_per_call=by_wrapper, device_ms_by_wrapper=ms_by_wrapper,
         device_busy_share=device_ms / wall_ms if rows else "not measured",
         top=[dict(ms_per_call=r[0], launches_per_call=r[1], name=r[2][:90]) for r in rows[:25]],
     )
@@ -1242,8 +1275,8 @@ def print_rows(k) -> None:
         print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}){extra} "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library {r['library_ms']}")
-    totals = [("stream step", k)] + [(what, k[total]) for total, (_, what) in OTHER_STEPS.items()
-                                     if total in k]
+    totals = [(k.get("per_what", "stream step"), k)] + [
+        (what, k[total]) for total, (_, what) in OTHER_STEPS.items() if total in k]
     for what, t in totals:
         print(f"{k['name']:22s} per {what}: ms {t['ms']:.4f} plain {t['plain_ms']:.3f} "
               f"bound {t['bound_ms']:.4f} library {t['library_ms']}")
@@ -2281,6 +2314,335 @@ def server_phase(torch) -> dict:
                 mjpeg_frames_by_encoder=encoders)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: motion-module training
+# ---------------------------------------------------------------------------
+
+# the JAX trainer's non-tiny defaults (live2diff_tpu/train.py:45-62, 323-324)
+TRAIN_CONFIG = dict(batch=2, clip_len=4, height=256, width=256, lr=1e-4, weight_decay=0.01,
+                    seed=0)
+TRAIN_STEPS = 20  # the counted and timed steps (the main path of this phase)
+TRAIN_PROFILE_STEPS = 3
+TRAIN_RESUME_STEPS = 2
+# attention calls a training step, each through FlashAttentionTrain: the 16
+# spatial transformers' self- and cross-attentions and the 20 motion
+# modules' two temporal attentions; all but the first transformer's two
+# need a gradient (its inputs come from frozen layers only), so 70 of them
+# launch the backward
+TRAIN_FWD_PER_STEP, TRAIN_BWD_PER_STEP = 72, 70
+# the fp32 training kernels against their plain versions: max error over
+# max |plain|. Both compute in fp32 (the plain products with TF32 off), so
+# only the order of the sums differs (~1e-6); a wrong tile or mask gives
+# errors of order 1
+TRAIN_KERNEL_TOL = 1e-4
+# the narrow trainer on the card against fp32 on the CPU, TF32 off: the loss
+# and all motion gradients together, relative RMS. fp32 on both sides with
+# sums in other orders through a whole UNet and its backward
+TRAIN_NARROW_TOL = 1e-3
+# a resumed run against the uninterrupted one on the same card: the state is
+# restored bit for bit; the steps after it may run library kernels whose
+# sums are not ordered (cuDNN, cuBLAS), so their losses are held within
+TRAIN_RESUME_TOL = 1e-5
+
+
+def record_attention_shapes(flash_train):
+    """Wrap the training pair's wrappers (the names ``FlashAttentionTrain``
+    calls) to count their calls by (q shape, k shape, scale); returns the
+    counts and a function that restores the wrappers. The wrapped calls
+    launch as before."""
+    shapes = defaultdict(lambda: [0, 0])
+    fwd, bwd = flash_train.flash_train_fwd, flash_train.flash_train_bwd
+
+    def rec_fwd(q, k, v, scale):
+        shapes[tuple(q.shape), tuple(k.shape), scale][0] += 1
+        return fwd(q, k, v, scale)
+
+    def rec_bwd(q, k, v, o, lse, do, scale):
+        shapes[tuple(q.shape), tuple(k.shape), scale][1] += 1
+        return bwd(q, k, v, o, lse, do, scale)
+
+    flash_train.flash_train_fwd, flash_train.flash_train_bwd = rec_fwd, rec_bwd
+
+    def undo():
+        flash_train.flash_train_fwd, flash_train.flash_train_bwd = fwd, bwd
+
+    return shapes, undo
+
+
+def check_train_attention(torch, gen, dev, shapes):
+    """Both training kernels against their plain versions at every shape a
+    training step gave them, fp32, with their times, the plain versions',
+    SDPA's (fp32, forward, and its backward alone: a yardstick the port
+    never calls) and the bounds. Returns (forward rows, backward rows)."""
+    import torch.nn.functional as F
+
+    from live2diff_tpu_torch.ops.flash_train import (
+        flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,
+    )
+
+    fwd_rows, bwd_rows = [], []
+    for (qs, ks, scale), (n_fwd, n_bwd) in sorted(shapes.items()):
+        q, do = (torch.randn(qs, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
+        out, lse = flash_train_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_train_fwd_plain(q, k, v, scale)
+        err_o, rel_o = compare(out, ref_out, TRAIN_KERNEL_TOL)
+        err_l, rel_l = compare(lse, ref_lse, TRAIN_KERNEL_TOL)
+        grads = flash_train_bwd(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        refs = flash_train_bwd_plain(q, k, v, ref_out, ref_lse, do, scale)
+        errs = [compare(g, r, TRAIN_KERNEL_TOL) for g, r in zip(grads, refs)]
+        del refs, ref_out, ref_lse
+
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+        do_t = do.transpose(1, 2)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, scale=scale)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, leaves, do_t, retain_graph=True)
+
+        n, sq, h, d = qs
+        sk = ks[1]
+        pairs = n * h * sq * sk
+        rows_lse = n * h * sq
+        f_ms, f_by = bound(4 * (2 * q.numel() + k.numel() + v.numel() + rows_lse),
+                           (4 * pairs * d, "fp32"), exps=pairs)
+        b_ms, b_by = bound(4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + rows_lse),
+                           (10 * pairs * d, "fp32"), exps=pairs)
+        shape = f"q[{n},{sq},{h},{d}] k[{n},{sk},{h},{d}] scale {scale:.6g}"
+        lib_fwd = time_ms(sdpa_fwd, 10)
+        lib_bwd = time_ms(sdpa_bwd, 10)
+        fwd_rows.append(dict(
+            shape=shape, calls=n_fwd, max_abs_err=max(err_o, err_l), rel_err=max(rel_o, rel_l),
+            tol=TRAIN_KERNEL_TOL, ms=time_ms(lambda: flash_train_fwd(q, k, v, scale), 10),
+            plain_ms=time_ms(lambda: flash_train_fwd_plain(q, k, v, scale), 2),
+            bound_ms=f_ms, bound_by=f_by, library_ms=lib_fwd))
+        bwd_rows.append(dict(
+            shape=shape, calls=n_bwd, max_abs_err=max(e for e, _ in errs),
+            rel_err=max(r for _, r in errs), tol=TRAIN_KERNEL_TOL,
+            ms=time_ms(lambda: flash_train_bwd(q, k, v, out, lse, do, scale), 10),
+            plain_ms=time_ms(lambda: flash_train_bwd_plain(q, k, v, out, lse, do, scale), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
+            sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd))
+        del q, k, v, do, out, lse, grads, leaves, sdpa_out
+    return fwd_rows, bwd_rows
+
+
+def narrow_trainer_check(torch, _build):
+    """Phase 3's narrow UNet (every weight drawn, the zero-initialised ones
+    too, so every motion gradient is nonzero), with its depth branch: one
+    diffusion loss and its backward on the card and in fp32 on the CPU, the
+    same clips, t and noise. Returns the loss's relative error and the
+    motion gradients' relative RMS error (all together, and the worst
+    tensor's)."""
+    from live2diff_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+    from live2diff_tpu_torch.parallel.train import (
+        alphas_cumprod, diffusion_loss, is_motion_param, make_optimizer,
+    )
+
+    gen = torch.Generator().manual_seed(16)
+    cpu = UNet3DConditionModel(UNetConfig(**SMALL_UNET))
+    fan_in_init_(cpu, gen)
+    card = UNet3DConditionModel(UNetConfig(**SMALL_UNET)).cuda()
+    card.load_state_dict(cpu.state_dict())
+    batch = {"latents": torch.randn(2, 4, 8, 8, 4, generator=gen),
+             "text": torch.randn(2, 77, 64, generator=gen),
+             "depth": torch.randn(2, 4, 8, 8, 4, generator=gen)}
+    t, noise = torch.tensor([41, 877]), torch.randn(2, 4, 8, 8, 4, generator=gen)
+    losses, grads = [], []
+    for unet, dev in ((cpu, "cpu"), (card, "cuda")):
+        make_optimizer(unet)
+        _build.reset_launch_counts()
+        loss = diffusion_loss(unet, {k: x.to(dev) for k, x in batch.items()},
+                              alphas_cumprod(device=dev), t=t.to(dev), noise=noise.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu() for n, p in unet.named_parameters()
+                      if is_motion_param(n)})
+    counts = dict(_build.launch_counts)
+    if (counts["flash_train_fwd"], counts["flash_train_bwd"]) != (TRAIN_FWD_PER_STEP,
+                                                                 TRAIN_BWD_PER_STEP):
+        raise AssertionError(f"narrow trainer: training kernels launched {counts}")
+    num = sum((grads[1][n] - g).pow(2).sum().item() for n, g in grads[0].items())
+    den = sum(g.pow(2).sum().item() for g in grads[0].values())
+    worst = max((rel_rms(grads[1][n], g), n) for n, g in grads[0].items())
+    result = dict(loss_cpu=losses[0], loss_card=losses[1],
+                  loss_rel_err=abs(losses[1] - losses[0]) / abs(losses[0]),
+                  grad_rel_rms=(num / den) ** 0.5, worst_tensor_rel_rms=worst[0],
+                  worst_tensor=worst[1], motion_tensors=len(grads[0]), tol=TRAIN_NARROW_TOL)
+    if not max(result["loss_rel_err"], result["grad_rel_rms"]) <= TRAIN_NARROW_TOL:
+        raise AssertionError(f"narrow trainer: card against CPU {result}")
+    return result
+
+
+def motion_state(torch, trainer):
+    """Copies of the motion parameters and of the AdamW state."""
+    from live2diff_tpu_torch.parallel.train import is_motion_param
+
+    params = {n: p.detach().clone() for n, p in trainer.unet.named_parameters()
+              if is_motion_param(n)}
+    opt = [{k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+           for s in trainer.state.optimizer.state.values()]
+    return params, opt
+
+
+def training_phase(torch, _build, smi, gen, dev):
+    """Phase 16: the training kernels at every training shape, the narrow
+    trainer against the CPU, and ``Trainer`` at the JAX trainer's full-width
+    defaults for TRAIN_STEPS counted steps, profiled, saved and resumed."""
+    import dataclasses
+    import shutil
+
+    from live2diff_tpu_torch.ops import flash_train
+    from live2diff_tpu_torch.parallel.train import is_motion_param
+    from live2diff_tpu_torch.train import Trainer, TrainerConfig, synthetic_clips
+
+    result = {"tf32": dict(cuda_matmul=torch.backends.cuda.matmul.allow_tf32,
+                           cudnn=torch.backends.cudnn.allow_tf32,
+                           float32_matmul_precision=torch.get_float32_matmul_precision())}
+    result["narrow_trainer"] = narrow_trainer_check(torch, _build)
+    print(f"narrow trainer, card against CPU: {json.dumps(result['narrow_trainer'])}",
+          flush=True)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = TrainerConfig(**TRAIN_CONFIG, steps=10 ** 9, log_every=0, save_every=0,
+                        ckpt_dir=root)
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)  # on the card: the entry's default
+        torch.cuda.synchronize()
+        result["build_s"] = time.perf_counter() - t0
+        named = list(trainer.unet.named_parameters())
+        result["unet_parameters"] = sum(p.numel() for _, p in named)
+        result["motion_parameters"] = sum(p.numel() for n, p in named if is_motion_param(n))
+        frozen = {n: p.detach().clone() for n, p in named if not is_motion_param(n)}
+        vae = [p.detach().clone() for p in trainer.vae.parameters()]
+        motion_before, _ = motion_state(torch, trainer)
+        clips = next(synthetic_clips(cfg))
+
+        # one step logs every shape the attention is given
+        shapes, undo = record_attention_shapes(flash_train)
+        try:
+            first_loss = trainer.train_step(clips)
+        finally:
+            undo()
+        calls = [sum(c[i] for c in shapes.values()) for i in (0, 1)]
+        if calls != [TRAIN_FWD_PER_STEP, TRAIN_BWD_PER_STEP]:
+            raise AssertionError(f"training step: attention calls {calls}, expected "
+                                 f"{[TRAIN_FWD_PER_STEP, TRAIN_BWD_PER_STEP]}: {dict(shapes)}")
+        print("training step's attention shapes (q, k, scale): calls forward, backward: "
+              + json.dumps({f"{q} {k} {s:.6g}": c for (q, k, s), c in sorted(shapes.items())}))
+
+        # the main path of this phase: TRAIN_STEPS steps, counted and timed
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        losses, ms = [first_loss], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(clips))  # float(): synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(_build.launch_counts)
+        result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        result["peak_memory_net_bytes"] = result["peak_memory_bytes"] - base
+        expected = {k: 0 for k in counts}
+        expected.update(flash_train_fwd=TRAIN_FWD_PER_STEP * TRAIN_STEPS,
+                        flash_train_bwd=TRAIN_BWD_PER_STEP * TRAIN_STEPS)
+        if counts != expected:
+            raise AssertionError(f"training steps launched {counts}, expected {expected}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"training: non-finite loss in {losses}")
+        ms_sorted = sorted(ms)
+        p50 = statistics.median(ms)
+        result.update(
+            steps=TRAIN_STEPS, launches=counts, losses=losses, step_ms_all=ms,
+            step_ms_p50=p50, step_ms_p90=ms_sorted[int(0.9 * (len(ms) - 1))],
+            clips_per_s=cfg.batch * 1e3 / p50)
+
+        prof = profile_device(torch, lambda: trainer.train_step(clips), TRAIN_PROFILE_STEPS)
+        expected_dev = {name: 0 for name in DEVICE_KERNELS}
+        expected_dev.update(flash_train_fwd=TRAIN_FWD_PER_STEP,
+                            flash_train_bwd=TRAIN_BWD_PER_STEP)
+        result["device_kernels_per_step"] = check_device_kernels(
+            "training steps", prof, expected_dev,
+            lambda: profile_device(torch, lambda: trainer.train_step(clips), TRAIN_PROFILE_STEPS))
+        if isinstance(prof["device_ms_per_call"], float):
+            attn = sum(sum(prof["device_ms_by_wrapper"][k])
+                       for k in ("flash_train_fwd", "flash_train_bwd"))
+            prof["attention_kernels_ms_per_step"] = attn
+            prof["attention_share_of_device_ms"] = attn / prof["device_ms_per_call"]
+            prof["device_ms_over_step_ms_p50"] = prof["device_ms_per_call"] / p50
+        result["profile"] = prof
+
+        # frozen weights bit-equal, the motion modules moved
+        for n, p in trainer.unet.named_parameters():
+            if not is_motion_param(n) and not torch.equal(p, frozen[n]):
+                raise AssertionError(f"training moved the frozen parameter {n}")
+        if not all(torch.equal(a, b) for a, b in zip(trainer.vae.parameters(), vae)):
+            raise AssertionError("training moved the VAE")
+        motion_now, _ = motion_state(torch, trainer)
+        still = [n for n in motion_now if torch.equal(motion_now[n], motion_before[n])]
+        if still:
+            raise AssertionError(f"training left {len(still)} motion parameters where they "
+                                 f"were: {still[:5]}")
+        del frozen, vae, motion_before, motion_now
+
+        # save, resume into a fresh trainer, and go on in both
+        t0 = time.perf_counter()
+        path = trainer.save()
+        result["save_s"] = time.perf_counter() - t0
+        result["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        resumed = Trainer(dataclasses.replace(cfg, resume=True))
+        torch.cuda.synchronize()
+        result["resume_s"] = time.perf_counter() - t0
+        if resumed.state.step != trainer.state.step:
+            raise AssertionError(f"resumed at step {resumed.state.step}, saved at "
+                                 f"{trainer.state.step}")
+        (pa, oa), (pb, ob) = motion_state(torch, trainer), motion_state(torch, resumed)
+        same = (all(torch.equal(pa[n], pb[n]) for n in pa) and len(oa) == len(ob)
+                and all(torch.equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k]
+                        for x, y in zip(oa, ob) for k in x)
+                and torch.equal(trainer.state.generator.get_state(),
+                                resumed.state.generator.get_state()))
+        if not same:
+            raise AssertionError("the resumed state is not the saved one")
+        del pa, oa, pb, ob
+        go_on = [trainer.train_step(clips) for _ in range(TRAIN_RESUME_STEPS)]
+        go_resumed = [resumed.train_step(clips) for _ in range(TRAIN_RESUME_STEPS)]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(go_on, go_resumed))
+        pa, _ = motion_state(torch, trainer)
+        pb, _ = motion_state(torch, resumed)
+        result["resume"] = dict(step=resumed.state.step, losses=go_on,
+                                losses_resumed=go_resumed, loss_rel_err=rel,
+                                losses_bitwise=go_on == go_resumed,
+                                params_max_abs_diff=max((pa[n] - pb[n]).abs().max().item()
+                                                        for n in pa),
+                                tol=TRAIN_RESUME_TOL)
+        if not rel <= TRAIN_RESUME_TOL:
+            raise AssertionError(f"resumed run off the uninterrupted one: {result['resume']}")
+        del pa, pb, resumed, trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    fwd_rows, bwd_rows = check_train_attention(torch, gen, dev, shapes)
+    per = (f"training step at {cfg.height}x{cfg.width}, batch {cfg.batch}, clip "
+           f"{cfg.clip_len}, fp32 (sum over shapes of calls x ms)")
+    src, replaces = "live2diff_tpu_torch/csrc/flash_train.cu", "live2diff_tpu/ops/flash_attention.py:143"
+    entries = [dict(summarise(name, src, replaces, rows), per=per, per_what="training step")
+               for name, rows in (("flash_train_fwd", fwd_rows), ("flash_train_bwd", bwd_rows))]
+    return result, entries
+
+
 def main() -> int:
     import torch
 
@@ -2549,6 +2911,20 @@ def main() -> int:
     served = server_phase(torch)
     print(f"demo server: {json.dumps(served)} ({smi})")
 
+    phase("training at full width: Trainer at the JAX trainer's defaults (256x256, batch 2, "
+          "clip 4, fp32), the training kernels at every shape it gives them")
+    trained, train_entries = training_phase(torch, _build, smi, gen, dev)
+    print(json.dumps({k: v for k, v in trained.items() if k != "profile"}))
+    print(f"training profile: {json.dumps(trained['profile'])}")
+    for k in train_entries:
+        print_rows(k)
+    print(f"training: step p50 {trained['step_ms_p50']:.2f} ms, p90 "
+          f"{trained['step_ms_p90']:.2f} ms, {trained['clips_per_s']:.3f} clips/s, device "
+          f"{trained['profile']['device_ms_per_call']} ms a step, attention kernels "
+          f"{trained['profile'].get('attention_share_of_device_ms')} of it, peak memory "
+          f"{trained['peak_memory_bytes'] / 2**30:.2f} GiB, TF32 {json.dumps(trained['tf32'])} "
+          f"({smi})")
+
     # each kernel's launches come from the phase that runs it: the wrappers'
     # counts over that phase's stream (its capture: one step), and the
     # device kernels a step in the profile of its replays
@@ -2564,6 +2940,13 @@ def main() -> int:
         k["launches_phase"] = ph
         if not k["launches"] or not k["device_launches_per_step"]:
             raise AssertionError(f"{k['name']} was not launched on phase {ph}")
+    # the training kernels' launches: phase 16's counted steps
+    for k in train_entries:
+        k["launches"] = trained["launches"][k["name"]]
+        k["launches_per_step"] = k["launches"] / trained["steps"]
+        k["device_launches_per_step"] = trained["device_kernels_per_step"][k["name"]]
+        k["launches_phase"] = 16
+        kernels.append(k)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,13 @@
 """Temporal motion modules: windowed attention over a streaming KV cache.
 
-Port of ``live2diff_tpu/models/motion.py`` (warmup and stream modes; the
-training ``clip`` mode is a later slice). Each motion module is a temporal
-transformer whose self-attention runs along the frame axis:
+Port of ``live2diff_tpu/models/motion.py``. Each motion module is a
+temporal transformer whose self-attention runs along the frame axis in one
+of three modes:
 
+* ``clip``: training. Bidirectional attention over the clip with the
+  absolute positional encodings 0..F-1 added to q, k and v; the caches are
+  not read or written, and come back as they were passed (the trainer
+  passes empty ones);
 * ``warmup``: bidirectional attention over the warmup frames, which also
   writes their PE-free K/V into cache slots 0..F-1 of the current step row;
 * ``stream``: one new frame per denoising step. Its K/V go into slot
@@ -106,7 +110,7 @@ def write_kv_warmup(cache: KVCache, k: torch.Tensor, v: torch.Tensor, step_idx: 
 
 
 class TemporalAttention(nn.Module):
-    """Temporal self-attention with warmup / stream behaviour."""
+    """Temporal self-attention with clip / warmup / stream behaviour."""
 
     def __init__(self, dim: int, heads: int = 8, pe_max_len: int = 24, window_size: int = 16):
         super().__init__()
@@ -135,8 +139,9 @@ class TemporalAttention(nn.Module):
         pe = sinusoidal_table(self.pe_max_len, c, q.device, q.dtype)[: self.window_size]
         pe_q, pe_k, pe_v = self.to_q(pe), self.to_k(pe), self.to_v(pe)  # [window, C]
 
-        if mode == "warmup":
-            new_cache = write_kv_warmup(kv_cache, k[0], v[0], warmup_step_idx)
+        if mode in ("clip", "warmup"):
+            new_cache = (write_kv_warmup(kv_cache, k[0], v[0], warmup_step_idx)
+                         if mode == "warmup" else kv_cache)
             # bidirectional attention over the clip with absolute PE 0..f-1
             q = q + pe_q[None, None, :f]
             k = k + pe_k[None, None, :f]

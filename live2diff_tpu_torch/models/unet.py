@@ -1,10 +1,12 @@
 """The inflated SD-1.5 UNet with depth conditioning and streaming motion modules.
 
-Port of ``live2diff_tpu/models/unet.py``. One module serves warmup and
-stream mode (``mode='warmup' | 'stream'``); only the temporal attention
-differs. Layout is channels-last video ``[B, F, H, W, C]``: in stream mode
-B is the denoising-step batch and F == 1; in warmup mode B == 1 and F is
-the number of warmup frames.
+Port of ``live2diff_tpu/models/unet.py``. One module serves training,
+warmup and stream mode (``mode='clip' | 'warmup' | 'stream'``); only the
+temporal attention differs. Layout is channels-last video ``[B, F, H, W,
+C]``: in stream mode B is the denoising-step batch and F == 1; in warmup
+mode B == 1 and F is the number of warmup frames; in clip mode B is the
+batch of training clips and F their length, and the caches are empty
+placeholders that come back unchanged.
 
 The KV caches are a flat tuple, one per temporal attention layer, in
 forward-traversal order (down blocks, then up blocks), threaded through the

@@ -48,11 +48,13 @@ launch_counts: Dict[str, int] = {
     "flash_attention_smajor": 0,
     "flash_attention_int8": 0,
     "group_norm": 0,
+    "flash_train_fwd": 0,
+    "flash_train_bwd": 0,
 }
 
 # every source under csrc/, by the name load() and build() take
 SOURCES = ("stream_attention", "flash_attention", "flash_attention_int8", "conv3x3",
-           "layer_norm", "group_norm")
+           "layer_norm", "group_norm", "flash_train")
 
 
 def reset_launch_counts() -> None:
@@ -123,6 +125,19 @@ def check(rc: int, what: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def no_grad_through(what: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a launch: grad
+    mode is on and a tensor argument requires grad. A ctypes launch returns
+    tensors without a ``grad_fn``, so the gradient would be lost without a
+    word. Every kernel wrapper calls this before it launches; only
+    ``flash_train.FlashAttentionTrain`` has a backward, and it launches its
+    kernels with grad mode off."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and a gradient is needed through it; "
+            "run it under torch.no_grad(), or train in fp32 (the attention's training kernels)")
 
 
 def require(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:

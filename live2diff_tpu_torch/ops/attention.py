@@ -2,17 +2,27 @@
 
 Port of ``live2diff_tpu/ops/attention.py``. Two functions:
 
-* ``dot_product_attention``: scaled dot-product attention. A call that
-  passes the JAX package's flash gate (``live2diff_tpu/ops/attention.py:
-  268-278``: no bias, rank 4, Sq == Sk >= 1024, both multiples of 128) runs
-  the caller's ``flash_variant``: ``smajor`` or ``int8`` take their own
-  kernels there (their plain versions on the CPU). Every other call, and
-  every call of the default ``dmajor``, launches the d-major flash kernel
-  on CUDA tensors (any rank: leading dims fold into the batch) and runs
-  the plain dense version on the CPU. A call with a bias (the text
-  encoder's causal mask) takes the plain dense version on every device:
-  fp32 logits plus the bias, then the softmax. No Pallas kernel computes
-  that function; the JAX package sends it to plain XLA.
+* ``dot_product_attention``: scaled dot-product attention, sent by
+  ``attention_route`` to one of these:
+
+  - ``dense``: a call with a bias (the text encoder's causal mask), on
+    every device: fp32 logits plus the bias, then the softmax. No Pallas
+    kernel computes that function; the JAX package sends it to plain XLA.
+  - ``train``: on CUDA, a call that needs a gradient (grad mode on and q,
+    k or v requiring grad) or whose inputs are fp32 goes through
+    ``flash_train.FlashAttentionTrain``, the fp32 flash kernels with their
+    backward (any rank: leading dims fold into the batch). A call that
+    needs a gradient in another dtype raises: no kernel of the port would
+    carry its gradient.
+  - the caller's ``flash_variant``, for a call that passes the JAX
+    package's flash gate (``live2diff_tpu/ops/attention.py:268-278``: no
+    bias, rank 4, Sq == Sk >= 1024, both multiples of 128): ``smajor`` or
+    ``int8`` take their own kernels there (their plain versions on the
+    CPU).
+  - ``dmajor``: every other call on CUDA, the d-major flash kernel (bf16,
+    any rank).
+  - ``plain``: every other call on the CPU, the plain dense version,
+    which autograd differentiates.
 * ``stream_window_attention``: one new frame's temporal attention over the
   streaming KV cache, with the positional encodings factored out of the
   cache. On CUDA an int8 cache goes through the int8 stream-attention
@@ -31,6 +41,7 @@ from .choices import FLASH_VARIANTS
 from .flash_attention import (
     flash_attention, flash_attention_plain, flash_self_attention, flash_self_attention_int8,
 )
+from .flash_train import FlashAttentionTrain
 from .stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
 )
@@ -46,6 +57,28 @@ def flash_gate(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor]) -
             and sq % 128 == 0 and sk % 128 == 0)
 
 
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor], flash_variant: str, cuda: bool) -> str:
+    """Where ``dot_product_attention`` sends a call (see the module's note):
+    ``dense``, ``train``, ``smajor``, ``int8``, ``dmajor`` or ``plain``.
+    ``cuda``: whether the tensors lie on a CUDA device."""
+    if flash_variant not in FLASH_VARIANTS:
+        raise ValueError(f"flash_variant {flash_variant!r}: expected one of {FLASH_VARIANTS}")
+    if bias is not None:
+        return "dense"
+    if cuda:
+        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        if needs_grad and q.dtype != torch.float32:
+            raise TypeError(
+                f"attention on CUDA needs a gradient through {q.dtype} inputs; the training "
+                "kernels take fp32 (train in fp32, or run under torch.no_grad())")
+        if needs_grad or q.dtype == torch.float32:
+            return "train"
+    if flash_variant != "dmajor" and flash_gate(q, k, bias):
+        return flash_variant
+    return "dmajor" if cuda else "plain"
+
+
 def dot_product_attention(
     q: torch.Tensor,  # [..., Sq, H, D]
     k: torch.Tensor,  # [..., Sk, H, D]
@@ -59,11 +92,10 @@ def dot_product_attention(
     ``flash_variant`` (``dmajor``, ``smajor`` or ``int8``) picks the kernel
     of the calls that pass ``flash_gate``, with the JAX dispatch's blocks."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if flash_variant not in FLASH_VARIANTS:
-        raise ValueError(f"flash_variant {flash_variant!r}: expected one of {FLASH_VARIANTS}")
-    if flash_variant != "dmajor" and flash_gate(q, k, bias):
+    route = attention_route(q, k, v, bias, flash_variant, q.is_cuda)
+    if route in ("smajor", "int8"):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, D] views
-        if flash_variant == "smajor":
+        if route == "smajor":
             out = flash_self_attention(qt, kt, vt, scale, block_q=512, block_k=1024)
         else:
             out = flash_self_attention_int8(qt, kt, vt, scale, block_q=512,
@@ -73,12 +105,12 @@ def dot_product_attention(
     q4 = q.reshape(-1, *q.shape[-3:])
     k4 = k.reshape(-1, *k.shape[-3:])
     v4 = v.reshape(-1, *v.shape[-3:])
-    if bias is not None:
-        # no kernel computes attention with a bias (the JAX package sends
-        # these calls to plain XLA): the dense path on every device
+    if route == "dense":
         bias = bias.expand(*lead, q.shape[-2], q.shape[-3], k.shape[-3])
         out = flash_attention_plain(q4, k4, v4, scale, bias.reshape(-1, *bias.shape[-3:]))
-    elif q.is_cuda:
+    elif route == "train":
+        out = FlashAttentionTrain.apply(q4.contiguous(), k4.contiguous(), v4.contiguous(), scale)
+    elif route == "dmajor":
         out = flash_attention(q4.contiguous(), k4.contiguous(), v4.contiguous(), scale)
     else:
         out = flash_attention_plain(q4, k4, v4, scale)

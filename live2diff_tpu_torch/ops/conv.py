@@ -74,6 +74,7 @@ def conv3x3(
     if not x.is_cuda:
         return conv3x3_plain(x, w, bias, skip, relu, stride)
     name = NAMES.get(stride)
+    _build.no_grad_through(name or "conv3x3", x, w, bias, skip)
     b, h, wd, cin = x.shape
     cout = w.shape[0]
     _build.require(x, "x", torch.bfloat16, 4)

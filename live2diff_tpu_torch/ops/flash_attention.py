@@ -79,6 +79,7 @@ def flash_attention(
     tensor runs the plain version."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
+    _build.no_grad_through(NAME, q, k, v)
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         _build.require(t, what, torch.bfloat16, 4)
         if t.data_ptr() % 16:
@@ -265,6 +266,7 @@ def flash_self_attention(
     version. ``block_q`` sets only the Pallas grid, not the result."""
     if not q.is_cuda:
         return flash_self_attention_plain(q, k, v, scale, block_q, block_k)
+    _build.no_grad_through(SMAJOR_NAME, q, k, v)
     _, bk = _blocks(q, k, block_q, block_k, "flash_self_attention")
     out, strides = _bhsd_launch_args("flash_self_attention", q, k, v)
     b, h, sq, d = q.shape
@@ -312,6 +314,7 @@ def flash_self_attention_int8(
     version."""
     if not q.is_cuda:
         return flash_self_attention_int8_plain(q, k, v, scale, block_q, block_k)
+    _build.no_grad_through(INT8_NAME, q, k, v)
     bq, bk = _blocks(q, k, block_q, block_k, "flash_self_attention_int8")
     out, strides = _bhsd_launch_args("flash_self_attention_int8", q, k, v)
     b, h, sq, d = q.shape
@@ -337,6 +340,7 @@ def quantize_groups_cuda(q: torch.Tensor, k: torch.Tensor, block_q: int = 512,
     checking the pre-pass only: no path of the port calls it, and it counts
     no launch. Returns (Q codes ``[B, H, Sq, D]`` int8, Q scales
     ``[B, H, Gq]``, K codes, K scales)."""
+    _build.no_grad_through("flash_attention_int8_quantize", q, k)
     bq, bk = _blocks(q, k, block_q, block_k, "quantize_groups_cuda")
     _, strides = _bhsd_launch_args("quantize_groups_cuda", q, k, k)
     b, h, sq, d = q.shape

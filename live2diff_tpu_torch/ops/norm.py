@@ -194,6 +194,7 @@ def group_norm(
     0, C <= 16384; any B); a CPU tensor runs the plain version."""
     if not x.is_cuda:
         return group_norm_plain(x, gamma, beta, groups, eps, act)
+    _build.no_grad_through(GN_NAME, x, gamma, beta)
     _build.require(x, "x", torch.bfloat16, 3)
     _build.require(gamma, "gamma", torch.bfloat16, 1)
     _build.require(beta, "beta", torch.bfloat16, 1)
@@ -286,6 +287,7 @@ def layer_norm_rows(
     version."""
     if not x.is_cuda:
         return layer_norm_plain(x, gamma, beta, eps)
+    _build.no_grad_through(LN_NAME, x, gamma, beta)
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(gamma, "gamma", torch.bfloat16, 1)
     _build.require(beta, "beta", torch.bfloat16, 1)

@@ -114,6 +114,7 @@ def stream_window_attention_plain(
 
 def _launch(name, q_full, cache_data, scales, extra, pe_v, scale, heads) -> torch.Tensor:
     """Check the arguments the kernel takes, launch it, count the launch."""
+    _build.no_grad_through(name, q_full, cache_data, scales, extra, pe_v)
     s, hw, c = q_full.shape
     window = cache_data.shape[2]
     _build.require(q_full, "q_full", torch.bfloat16, 3)

@@ -167,3 +167,49 @@ def test_build_pipeline_on_cpu_streams_uint8_frames():
         state, out = built.stream(state, frame)
         assert out.dtype == torch.uint8 and out.shape == (64, 64, 3)
     assert state.frame_idx == 3
+
+
+def test_importing_the_training_modules_pulls_in_no_jax():
+    """The trainer and its parallel package, imported alone (not through
+    the package walk), leave JAX out, and the trainer's entry defaults to
+    the card."""
+    code = (
+        "import sys, inspect\n"
+        "import live2diff_tpu_torch.train as t\n"
+        "import live2diff_tpu_torch.parallel.train, live2diff_tpu_torch.parallel.mesh\n"
+        "import live2diff_tpu_torch.parallel.data, live2diff_tpu_torch.parallel.checkpoint\n"
+        "import live2diff_tpu_torch.ops.flash_train\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
+        " 'orbax', 'live2diff_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert inspect.signature(t.Trainer).parameters['device'].default is None\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_training_kernels_take_their_plain_versions_on_cpu_tensors(monkeypatch):
+    from live2diff_tpu_torch.ops.flash_train import (
+        flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,
+    )
+
+    def no_build(name):
+        raise AssertionError(f"a CPU tensor must not build or launch {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(_build.launch_counts)
+    rs = np.random.RandomState(1)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, n, 2, 8).astype(np.float32))
+                   for n in (5, 77, 77, 5))
+    out, lse = flash_train_fwd(q, k, v, 0.3)
+    ref_out, ref_lse = flash_train_fwd_plain(q, k, v, 0.3)
+    torch.testing.assert_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse)
+    for got, want in zip(flash_train_bwd(q, k, v, out, lse, do, 0.3),
+                         flash_train_bwd_plain(q, k, v, out, lse, do, 0.3)):
+        torch.testing.assert_close(got, want)
+    assert _build.launch_counts == before
+    assert "flash_train" in _build.SOURCES
+    assert {"flash_train_fwd", "flash_train_bwd"} <= set(_build.launch_counts)
