@@ -151,8 +151,14 @@ Phases, each printed as it ends; any failure exits non-zero:
    the step logged (O and lse, dq, dk and dv within 1e-4 of the plain
    version's largest value), with their times, the plain versions', SDPA's
    forward and backward in fp32 (a yardstick the port never calls) and the
-   bound (bytes; 4 N H Sq Sk D operations forward and 10 backward at 67
-   TFLOP/s of fp32; the exponentials). Prints the TF32 settings in force.
+   bound (bytes; 4 N H Sq Sk D operations of products forward and 10
+   backward, each as 3 TF32 products at 495 TFLOP/s, the least time for
+   fp32-accurate products on the tensor cores, with the time at 67 TFLOP/s
+   of the fp32 lanes beside it; the exponentials, twice in the backward).
+   Each row names its route (``ops/flash_train.py:train_route``); the
+   counted steps' launches are asserted by route, and the profile's device
+   kernels by route (the short route's one kernel a launch, the tiled
+   backward's two). Prints the TF32 settings in force.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -175,8 +181,8 @@ import time
 from collections import Counter, defaultdict
 
 MEM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
-# dense tensor-core bf16 and int8; fp32 outside tensor cores
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# dense tensor-core bf16, int8 and TF32; fp32 outside tensor cores
+PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
 # exponentials: 16 a clock per SM (compute capability 9.0), times the SMs
 # and the card's max SM clock, both read in main()
 SFU_PER_SM_CLOCK = 16
@@ -189,7 +195,8 @@ MAIN_PATH_ROUTES = {"tma": 40, "scalar": 0, "cluster": 30}
 
 # the device kernels of each wrapper launch in the profile, by patterns of
 # the profiler's kernel names: one of each a launch (the int8-QK flash entry
-# launches its pre-pass and the flash core)
+# launches its pre-pass and the flash core). The training wrappers' kernels
+# are listed by route ("<wrapper>:<route>"; by_device_kernels)
 DEVICE_KERNELS = {
     "stream_attention_int8": (r"stream_attention_kernel<signed char,",),
     "stream_attention_bf16": (r"stream_attention_kernel<__nv_bfloat16,",),
@@ -200,10 +207,30 @@ DEVICE_KERNELS = {
     "conv3x3_s2": (r"conv3x3_sm90<2, ",),
     "layer_norm": (r"layer_norm_kernel<",),
     "group_norm": (r"group_norm_kernel<",),
-    "flash_train_fwd": (r"flash_train_fwd_kernel<",),
-    "flash_train_bwd": (r"flash_train_delta_kernel\(", r"flash_train_dkdv_kernel<",
-                        r"flash_train_dq_kernel<"),
+    "flash_train_fwd:short": (r"flash_train_short_fwd_kernel<",),
+    "flash_train_fwd:tiled": (r"flash_train_tiled_fwd(_split)?_kernel<",),
+    "flash_train_bwd:short": (r"flash_train_short_bwd_kernel<",),
+    "flash_train_bwd:tiled": (r"flash_train_tiled_dq_kernel<", r"flash_train_tiled_dkdv_kernel<"),
 }
+TRAIN_WRAPPERS = ("flash_train_fwd", "flash_train_bwd")
+TRAIN_ROUTES = ("short", "tiled")
+
+
+def by_device_kernels(expected, routes=None):
+    """``expected`` (launches by wrapper) keyed as ``DEVICE_KERNELS`` is: a
+    training wrapper's launches split by route as ``routes`` gives them
+    ({"<wrapper>:<route>": n}, which must sum to the wrapper's count);
+    without ``routes``, a training wrapper must launch nothing."""
+    out = {}
+    for name, n in expected.items():
+        if name not in TRAIN_WRAPPERS:
+            out[name] = n
+            continue
+        split = {f"{name}:{r}": (routes or {}).get(f"{name}:{r}", 0) for r in TRAIN_ROUTES}
+        if sum(split.values()) != n:
+            raise AssertionError(f"{name}: {n} launches expected, by route {split}")
+        out.update(split)
+    return out
 
 # plain references: full fp32 (cuDNN would otherwise run fp32 convs in TF32)
 TF32_OFF = "torch.backends.cudnn.allow_tf32 = False; torch.backends.cuda.matmul.allow_tf32 = False"
@@ -1214,13 +1241,16 @@ def profile_device(torch, call, n):
     )
 
 
-def check_device_kernels(what, prof, expected, retrace, tries: int = 3):
+def check_device_kernels(what, prof, expected, retrace, tries: int = 3, routes=None):
     """Each wrapper's device kernels per step in a profile of replays (every
     name ``DEVICE_KERNELS`` lists for it) against ``expected``, its
-    launches a step. Late in a long run the profiler drops a few records of
-    a trace (PERF.md); a trace that holds fewer of some kernel and more of
-    none is taken again by ``retrace()``, up to ``tries`` traces in all.
-    Returns the counts of the trace that matched; raises if none did."""
+    launches a step (the training wrappers' split by ``routes``, see
+    ``by_device_kernels``). Late in a long run the profiler drops a few
+    records of a trace (PERF.md); a trace that holds fewer of some kernel
+    and more of none is taken again by ``retrace()``, up to ``tries`` traces
+    in all. Returns the counts of the trace that matched, keyed as
+    ``DEVICE_KERNELS``; raises if none did."""
+    expected = by_device_kernels(expected, routes)
     seen = []
     while True:
         got = prof["device_kernels_per_call"]
@@ -1270,6 +1300,8 @@ def print_rows(k) -> None:
                       f"{r['prepare_calls_ln_all']} in prepare")
         if "route" in r:
             extra += f" route ({r['route']}) share of bound {r['bound_share']:.3f}"
+        if "bound_fp32_lanes_ms" in r:
+            extra += f" fp32-lane bound {r['bound_fp32_lanes_ms']:.4f}"
         if "device_ms" in r:
             extra += f" device ms {r['device_ms']} (share of bound {r['device_bound_share']})"
         print(f"{k['name']:22s} {r['shape']:48s} rel {r['rel_err']:.2e} (tol {r['tol']}){extra} "
@@ -2330,6 +2362,13 @@ TRAIN_RESUME_STEPS = 2
 # need a gradient (its inputs come from frozen layers only), so 70 of them
 # launch the backward
 TRAIN_FWD_PER_STEP, TRAIN_BWD_PER_STEP = 72, 70
+# the same by route (ops/flash_train.py:train_route): the short route takes
+# the 40 clip-mode temporal attentions (S = 4) and the 4 x 4 latent's
+# self-attention (S = 16, in the mid block, which has a backward); the
+# tiled route the other self-attentions (S = 64-1024) and every
+# cross-attention (77 keys)
+TRAIN_ROUTES_PER_STEP = {"flash_train_fwd:short": 41, "flash_train_fwd:tiled": 31,
+                         "flash_train_bwd:short": 41, "flash_train_bwd:tiled": 29}
 # the fp32 training kernels against their plain versions: max error over
 # max |plain|. Both compute in fp32 (the plain products with TF32 off), so
 # only the order of the sums differs (~1e-6); a wrong tile or mask gives
@@ -2371,13 +2410,16 @@ def record_attention_shapes(flash_train):
 
 def check_train_attention(torch, gen, dev, shapes):
     """Both training kernels against their plain versions at every shape a
-    training step gave them, fp32, with their times, the plain versions',
-    SDPA's (fp32, forward, and its backward alone: a yardstick the port
-    never calls) and the bounds. Returns (forward rows, backward rows)."""
+    training step gave them, fp32, with their route, times, the plain
+    versions', SDPA's (fp32, forward, and its backward alone: a yardstick
+    the port never calls) and the bounds: the products as 3 TF32 products
+    each (3xTF32, the least time for fp32-accurate products on this card),
+    the fp32 lanes' time beside it. Returns (forward rows, backward rows)."""
     import torch.nn.functional as F
 
     from live2diff_tpu_torch.ops.flash_train import (
         flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,
+        train_route,
     )
 
     fwd_rows, bwd_rows = [], []
@@ -2409,24 +2451,31 @@ def check_train_attention(torch, gen, dev, shapes):
         sk = ks[1]
         pairs = n * h * sq * sk
         rows_lse = n * h * sq
-        f_ms, f_by = bound(4 * (2 * q.numel() + k.numel() + v.numel() + rows_lse),
-                           (4 * pairs * d, "fp32"), exps=pairs)
-        b_ms, b_by = bound(4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + rows_lse),
-                           (10 * pairs * d, "fp32"), exps=pairs)
+        f_bytes = 4 * (2 * q.numel() + k.numel() + v.numel() + rows_lse)
+        b_bytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + rows_lse)
+        # the backward's exponentials twice: dK/dV and dQ each recompute P
+        f_ms, f_by = bound(f_bytes, (3 * 4 * pairs * d, "tf32"), exps=pairs)
+        b_ms, b_by = bound(b_bytes, (3 * 10 * pairs * d, "tf32"), exps=2 * pairs)
+        f_lanes = bound(f_bytes, (4 * pairs * d, "fp32"), exps=pairs)[0]
+        b_lanes = bound(b_bytes, (10 * pairs * d, "fp32"), exps=2 * pairs)[0]
         shape = f"q[{n},{sq},{h},{d}] k[{n},{sk},{h},{d}] scale {scale:.6g}"
+        route = train_route(sq, sk, d)
         lib_fwd = time_ms(sdpa_fwd, 10)
         lib_bwd = time_ms(sdpa_bwd, 10)
+        f_kernel_ms = time_ms(lambda: flash_train_fwd(q, k, v, scale), 10)
+        b_kernel_ms = time_ms(lambda: flash_train_bwd(q, k, v, out, lse, do, scale), 10)
         fwd_rows.append(dict(
-            shape=shape, calls=n_fwd, max_abs_err=max(err_o, err_l), rel_err=max(rel_o, rel_l),
-            tol=TRAIN_KERNEL_TOL, ms=time_ms(lambda: flash_train_fwd(q, k, v, scale), 10),
+            shape=shape, route=route, calls=n_fwd, max_abs_err=max(err_o, err_l),
+            rel_err=max(rel_o, rel_l), tol=TRAIN_KERNEL_TOL, ms=f_kernel_ms,
             plain_ms=time_ms(lambda: flash_train_fwd_plain(q, k, v, scale), 2),
-            bound_ms=f_ms, bound_by=f_by, library_ms=lib_fwd))
+            bound_ms=f_ms, bound_by=f_by, bound_share=f_ms / f_kernel_ms,
+            bound_fp32_lanes_ms=f_lanes, library_ms=lib_fwd))
         bwd_rows.append(dict(
-            shape=shape, calls=n_bwd, max_abs_err=max(e for e, _ in errs),
-            rel_err=max(r for _, r in errs), tol=TRAIN_KERNEL_TOL,
-            ms=time_ms(lambda: flash_train_bwd(q, k, v, out, lse, do, scale), 10),
+            shape=shape, route=route, calls=n_bwd, max_abs_err=max(e for e, _ in errs),
+            rel_err=max(r for _, r in errs), tol=TRAIN_KERNEL_TOL, ms=b_kernel_ms,
             plain_ms=time_ms(lambda: flash_train_bwd_plain(q, k, v, out, lse, do, scale), 2),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / b_kernel_ms,
+            bound_fp32_lanes_ms=b_lanes, library_ms=lib_bwd,
             sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd))
         del q, k, v, do, out, lse, grads, leaves, sdpa_out
     return fwd_rows, bwd_rows
@@ -2498,6 +2547,7 @@ def training_phase(torch, _build, smi, gen, dev):
     import shutil
 
     from live2diff_tpu_torch.ops import flash_train
+    from live2diff_tpu_torch.ops.flash_train import train_route
     from live2diff_tpu_torch.parallel.train import is_motion_param
     from live2diff_tpu_torch.train import Trainer, TrainerConfig, synthetic_clips
 
@@ -2537,18 +2587,30 @@ def training_phase(torch, _build, smi, gen, dev):
                                  f"{[TRAIN_FWD_PER_STEP, TRAIN_BWD_PER_STEP]}: {dict(shapes)}")
         print("training step's attention shapes (q, k, scale): calls forward, backward: "
               + json.dumps({f"{q} {k} {s:.6g}": c for (q, k, s), c in sorted(shapes.items())}))
+        by_route = Counter()
+        for (qs, ks, _), (n_fwd, n_bwd) in shapes.items():
+            route = train_route(qs[1], ks[1], qs[3])
+            if qs[1] == ks[1] == 4 and route != "short":
+                raise AssertionError(f"the clip-mode attention q{qs} takes the {route} route")
+            by_route[f"flash_train_fwd:{route}"] += n_fwd
+            by_route[f"flash_train_bwd:{route}"] += n_bwd
+        if dict(by_route) != TRAIN_ROUTES_PER_STEP:
+            raise AssertionError(f"training step: attention calls by route {dict(by_route)}, "
+                                 f"expected {TRAIN_ROUTES_PER_STEP}")
 
         # the main path of this phase: TRAIN_STEPS steps, counted and timed
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        routes_before = dict(flash_train.route_counts)
         losses, ms = [first_loss], []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             losses.append(trainer.train_step(clips))  # float(): synchronises
             ms.append((time.perf_counter() - t0) * 1e3)
         counts = dict(_build.launch_counts)
+        routes = {k: v - routes_before[k] for k, v in flash_train.route_counts.items()}
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         result["peak_memory_net_bytes"] = result["peak_memory_bytes"] - base
         expected = {k: 0 for k in counts}
@@ -2556,25 +2618,33 @@ def training_phase(torch, _build, smi, gen, dev):
                         flash_train_bwd=TRAIN_BWD_PER_STEP * TRAIN_STEPS)
         if counts != expected:
             raise AssertionError(f"training steps launched {counts}, expected {expected}")
+        expected_routes = {k: n * TRAIN_STEPS for k, n in TRAIN_ROUTES_PER_STEP.items()}
+        if routes != expected_routes:
+            raise AssertionError(f"training steps launched by route {routes}, expected "
+                                 f"{expected_routes}")
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"training: non-finite loss in {losses}")
         ms_sorted = sorted(ms)
         p50 = statistics.median(ms)
         result.update(
-            steps=TRAIN_STEPS, launches=counts, losses=losses, step_ms_all=ms,
+            steps=TRAIN_STEPS, launches=counts, launches_by_route=routes, losses=losses,
+            step_ms_all=ms,
             step_ms_p50=p50, step_ms_p90=ms_sorted[int(0.9 * (len(ms) - 1))],
             clips_per_s=cfg.batch * 1e3 / p50)
 
         prof = profile_device(torch, lambda: trainer.train_step(clips), TRAIN_PROFILE_STEPS)
-        expected_dev = {name: 0 for name in DEVICE_KERNELS}
+        expected_dev = {name: 0 for name in _build.launch_counts}
         expected_dev.update(flash_train_fwd=TRAIN_FWD_PER_STEP,
                             flash_train_bwd=TRAIN_BWD_PER_STEP)
         result["device_kernels_per_step"] = check_device_kernels(
             "training steps", prof, expected_dev,
-            lambda: profile_device(torch, lambda: trainer.train_step(clips), TRAIN_PROFILE_STEPS))
+            lambda: profile_device(torch, lambda: trainer.train_step(clips), TRAIN_PROFILE_STEPS),
+            routes=TRAIN_ROUTES_PER_STEP)
         if isinstance(prof["device_ms_per_call"], float):
-            attn = sum(sum(prof["device_ms_by_wrapper"][k])
-                       for k in ("flash_train_fwd", "flash_train_bwd"))
+            attn_by = {k: sum(v) for k, v in prof["device_ms_by_wrapper"].items()
+                       if k.startswith("flash_train")}
+            prof["attention_kernels_ms_per_step_by_route"] = attn_by
+            attn = sum(attn_by.values())
             prof["attention_kernels_ms_per_step"] = attn
             prof["attention_share_of_device_ms"] = attn / prof["device_ms_per_call"]
             prof["device_ms_over_step_ms_p50"] = prof["device_ms_per_call"] / p50
@@ -2638,8 +2708,18 @@ def training_phase(torch, _build, smi, gen, dev):
     per = (f"training step at {cfg.height}x{cfg.width}, batch {cfg.batch}, clip "
            f"{cfg.clip_len}, fp32 (sum over shapes of calls x ms)")
     src, replaces = "live2diff_tpu_torch/csrc/flash_train.cu", "live2diff_tpu/ops/flash_attention.py:143"
-    entries = [dict(summarise(name, src, replaces, rows), per=per, per_what="training step")
-               for name, rows in (("flash_train_fwd", fwd_rows), ("flash_train_bwd", bwd_rows))]
+    entries = []
+    for name, rows in (("flash_train_fwd", fwd_rows), ("flash_train_bwd", bwd_rows)):
+        entry = dict(summarise(name, src, replaces, rows), per=per, per_what="training step")
+        entry["bound_fp32_lanes_ms"] = sum(r["calls"] * r["bound_fp32_lanes_ms"] for r in rows)
+        # the same sums by route, each per training step
+        entry["routes"] = {
+            route: {key: sum(r["calls"] * r[key] for r in rows if r["route"] == route)
+                    for key in ("ms", "plain_ms", "bound_ms", "bound_fp32_lanes_ms",
+                                "library_ms")}
+            | {"calls": sum(r["calls"] for r in rows if r["route"] == route)}
+            for route in TRAIN_ROUTES}
+        entries.append(entry)
     return result, entries
 
 
@@ -2918,6 +2998,8 @@ def main() -> int:
     print(f"training profile: {json.dumps(trained['profile'])}")
     for k in train_entries:
         print_rows(k)
+        print(f"{k['name']} by route, per training step: {json.dumps(k['routes'])}; fp32-lane "
+              f"bound {k['bound_fp32_lanes_ms']:.4f} ms")
     print(f"training: step p50 {trained['step_ms_p50']:.2f} ms, p90 "
           f"{trained['step_ms_p90']:.2f} ms, {trained['clips_per_s']:.3f} clips/s, device "
           f"{trained['profile']['device_ms_per_call']} ms a step, attention kernels "
@@ -2944,7 +3026,10 @@ def main() -> int:
     for k in train_entries:
         k["launches"] = trained["launches"][k["name"]]
         k["launches_per_step"] = k["launches"] / trained["steps"]
-        k["device_launches_per_step"] = trained["device_kernels_per_step"][k["name"]]
+        k["launches_by_route"] = {r: trained["launches_by_route"][f"{k['name']}:{r}"]
+                                  for r in TRAIN_ROUTES}
+        k["device_launches_per_step"] = sum(trained["device_kernels_per_step"][f"{k['name']}:{r}"]
+                                            for r in TRAIN_ROUTES)
         k["launches_phase"] = 16
         kernels.append(k)
 

@@ -2,7 +2,7 @@
 """Per-call device time of the port's attention, conv and norm kernels, on one GPU.
 
     python3 scripts/kernel_ab.py [--other DIR] [--reps 20] [--json PATH]
-                                 [--only stream|flash|conv|int8|ln|gn] [--device]
+                                 [--only stream|flash|conv|int8|ln|gn|train] [--device]
 
 Times both stream-attention entries (kernels #1 and #2, int8 and bf16
 cache) at the four UNet levels of the 512x512 and of the 768x512 stream
@@ -16,8 +16,10 @@ shapes (phase 6's and the 768x512 step's), and ``layer_norm_rows`` (kernel
 #9) at phase 4's ViT shapes and the UNet's shapes of phase 10
 (``ln_kernel_sites="all"``), and ``group_norm`` (kernel #8) at the 22
 shapes of a 512x512 stream step with ``gn_kernel_sites="all"`` and
-prepare's largest, with CUDA events, the L2 cache overwritten before each
-call. With
+prepare's largest, and the fp32 training pair ``flash_train_fwd`` and
+``flash_train_bwd`` at the 12 shapes of a training step at 256x256
+(``chip_smoke.py`` phase 16), with CUDA events, the L2 cache overwritten
+before each call. With
 ``--other DIR`` (another checkout of the repository, for example a parent
 commit unpacked with ``git archive``) both trees are timed on the same card
 in turns: this tree, the other, the other, this tree, each in a process of
@@ -94,6 +96,14 @@ CONV = [
                                                   (512, 768), (256, 384), (128, 192))],
     (16, 512, 512, 64, 2, False, False),
 ]
+# (N, Sq, Sk, H, D) of the fp32 training pair: a training step at 256x256,
+# batch 2, clip 4 (chip_smoke.py phase 16): the spatial self- and
+# cross-attentions at the four latent levels, the clip-mode temporal ones
+TRAIN = [
+    (8, 1024, 1024, 8, 40), (8, 256, 256, 8, 80), (8, 64, 64, 8, 160), (8, 16, 16, 8, 160),
+    (8, 1024, 77, 8, 40), (8, 256, 77, 8, 80), (8, 64, 77, 8, 160), (8, 16, 77, 8, 160),
+    (2048, 4, 4, 8, 40), (512, 4, 4, 8, 80), (128, 4, 4, 8, 160), (32, 4, 4, 8, 160),
+]
 
 
 def child(root: str, reps: int, only, device: bool) -> None:
@@ -103,6 +113,7 @@ def child(root: str, reps: int, only, device: bool) -> None:
     import torch
 
     from live2diff_tpu_torch.ops import flash_attention as fa
+    from live2diff_tpu_torch.ops import flash_train as ft
     from live2diff_tpu_torch.ops import stream_attention as sa
     from live2diff_tpu_torch.ops.conv import conv3x3
     from live2diff_tpu_torch.ops.norm import group_norm, layer_norm_rows
@@ -173,6 +184,16 @@ def child(root: str, reps: int, only, device: bool) -> None:
                          shape=f"x[{b},{h},{w},{cin}]" + (" +skip+relu" if fused else ""),
                          ms=time_ms(lambda: conv3x3(x, wt, bs, sk, fused, stride))))
         del x, sk
+    for n, sq, sk, h, d in TRAIN if only in (None, "train") else ():
+        q, do = (torch.randn(n, sq, h, d, generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn(n, sk, h, d, generator=gen, device="cuda") for _ in range(2))
+        out, lse = ft.flash_train_fwd(q, k, v, d ** -0.5)
+        shape = f"q[{n},{sq},{h},{d}] k[{n},{sk},{h},{d}]"
+        rows.append(dict(entry="train fwd", shape=shape,
+                         ms=time_ms(lambda: ft.flash_train_fwd(q, k, v, d ** -0.5))))
+        rows.append(dict(entry="train bwd", shape=shape, ms=time_ms(
+            lambda: ft.flash_train_bwd(q, k, v, out, lse, do, d ** -0.5))))
+        del q, k, v, do, out, lse
     print(json.dumps(dict(port=os.path.dirname(fa.__file__), rows=rows)))
 
 
@@ -194,7 +215,7 @@ def main() -> int:
     ap.add_argument("--other", help="another checkout of the repository, timed in turns")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the rows to this file")
-    ap.add_argument("--only", choices=("stream", "flash", "conv", "int8", "ln", "gn"))
+    ap.add_argument("--only", choices=("stream", "flash", "conv", "int8", "ln", "gn", "train"))
     ap.add_argument("--device", action="store_true",
                     help="the kernels' device time by the profiler, not events")
     ap.add_argument("--child", help=argparse.SUPPRESS)

@@ -31,9 +31,12 @@ from live2diff_tpu_torch.ops.stream_attention import (
 # (leading dims, Sq, Sk, H, D): the clip-mode temporal attention (rank 5,
 # S = 4, the spatial positions folded in), a cross-attention over 77 text
 # tokens, an S = 256 self-attention, and head widths from 2 to 160 (17: a
-# width no tile divides)
+# width no tile divides); the short route's shapes on the card (S = 4 over
+# a leading (2, 3), the 4 x 4 latent's S = 16 at D = 160)
 SHAPES = {
     "temporal": ((2, 16), 4, 4, 2, 8),
+    "short4": ((2, 3), 4, 4, 2, 40),
+    "short16": ((2,), 16, 16, 2, 160),
     "cross77": ((2,), 64, 77, 2, 40),
     "self256": ((1,), 256, 256, 2, 80),
     "d2": ((3,), 16, 16, 1, 2),

@@ -2,12 +2,15 @@
 
 Needs an NVIDIA Hopper GPU and ``nvcc``; without a CUDA device each test
 skips. ``flash_train_fwd`` (O and lse) and ``flash_train_bwd`` (dq, dk, dv)
-against their plain versions at ragged shapes (lengths that are not
-multiples of the 64-row tiles, head widths from 1 to 160, Sq != Sk),
-repeated backward launches bit for bit (no atomics), the autograd route
-through ``dot_product_attention``, the guard on the other kernels, and a
-tiny trainer's step on the card against the CPU. Run them on the card from
-the repository root:
+against their plain versions on both routes (``train_route``: short where
+Sq and Sk are at most ``SHORT_MAX``, tiled with 3xTF32 products otherwise):
+at the 12 shapes of a training step at 256x256 (N cut to at most 64), at
+S = SHORT_MAX and SHORT_MAX + 1, at head widths 1, 17 and 144 and at ragged
+shapes (lengths that are not multiples of the 64-row tiles, Sq != Sk);
+repeated backward launches bit for bit on each route (no atomics), the
+launches by route, the autograd route through ``dot_product_attention``,
+the guard on the other kernels, and a tiny trainer's step on the card
+against the CPU. Run them on the card from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_train_cuda.py
 
@@ -24,8 +27,10 @@ import torch
 from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops.attention import dot_product_attention
 from live2diff_tpu_torch.ops.flash_attention import flash_attention_plain
+from live2diff_tpu_torch.ops import flash_train as ft
 from live2diff_tpu_torch.ops.flash_train import (
-    flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,
+    SHORT_MAX, flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,
+    train_route,
 )
 
 pytestmark = pytest.mark.cuda
@@ -52,8 +57,23 @@ def _inputs(dev, n, sq, sk, h, d, seed=0):
     return r(sq), r(sk), r(sk), r(sq)
 
 
-@pytest.mark.parametrize("n,sq,sk,h,d", [
-    (64, 4, 4, 8, 40),       # clip-mode temporal attention: S = 4
+# (N, Sq, Sk, H, D) of a training step at 256x256, batch 2, clip 4: the
+# spatial self- and cross-attentions at the four latent levels (N = 8
+# frames), then the clip-mode temporal attentions (N = 2 x HW, cut to 64)
+STEP_SHAPES = [
+    (8, 1024, 1024, 8, 40), (8, 256, 256, 8, 80), (8, 64, 64, 8, 160), (8, 16, 16, 8, 160),
+    (8, 1024, 77, 8, 40), (8, 256, 77, 8, 80), (8, 64, 77, 8, 160), (8, 16, 77, 8, 160),
+    (64, 4, 4, 8, 40), (64, 4, 4, 8, 80), (64, 4, 4, 8, 160), (32, 4, 4, 8, 160),
+]
+T = SHORT_MAX
+
+
+@pytest.mark.parametrize("n,sq,sk,h,d", STEP_SHAPES + [
+    (3, T, T, 4, 40), (3, T + 1, T + 1, 4, 40),  # the routes' edge
+    (2, T, T + 1, 2, 24), (2, T + 1, 3, 2, 24),
+    (5, 4, 4, 3, 1), (5, 4, 4, 3, 17), (5, 7, 5, 2, 144),  # ragged D, short
+    (3, 4, 4, 8, 36), (7, 3, 4, 5, 40),                    # odd heads and rows
+    (2, 70, 33, 2, 1), (2, 70, 70, 2, 17), (1, 90, 50, 2, 144),  # ragged D, tiled
     (2, 100, 77, 3, 40),     # ragged query tile, the text length
     (1, 65, 130, 2, 80),     # one row past a tile, ragged key tiles
     (2, 256, 256, 2, 160),   # the widest head
@@ -65,6 +85,9 @@ def _inputs(dev, n, sq, sk, h, d, seed=0):
 def test_training_pair_matches_plain(dev, n, sq, sk, h, d):
     q, k, v, do = _inputs(dev, n, sq, sk, h, d, seed=sq * 1000 + d)
     scale = d ** -0.5
+    route = train_route(sq, sk, d)
+    assert route == ("short" if max(sq, sk) <= T else "tiled")
+    before = dict(ft.route_counts)
     out, lse = flash_train_fwd(q, k, v, scale)
     ref_out, ref_lse = flash_train_fwd_plain(q, k, v, scale)
     torch.cuda.synchronize()
@@ -85,15 +108,49 @@ def test_training_pair_matches_plain(dev, n, sq, sk, h, d):
             assert (g - r).abs().max() < TOL * terms[what](), what
         else:
             assert _rel(g, r) < TOL, what
+    assert {k: ft.route_counts[k] - before[k] for k in before} == {
+        f"{w}:{r}": int(r == route) for w in ("flash_train_fwd", "flash_train_bwd")
+        for r in ("short", "tiled")}
 
 
-def test_backward_repeats_bit_for_bit(dev):
-    q, k, v, do = _inputs(dev, 8, 1024, 1024, 8, 40, seed=3)
-    out, lse = flash_train_fwd(q, k, v, 40 ** -0.5)
-    first = flash_train_bwd(q, k, v, out, lse, do, 40 ** -0.5)
+@pytest.mark.parametrize("route,shape", [("tiled", (8, 1024, 1024, 8, 40)),
+                                         ("short", (2048, 4, 4, 8, 40)),
+                                         ("short", (8, 16, 16, 8, 160))])
+def test_backward_repeats_bit_for_bit(dev, route, shape):
+    n, sq, sk, h, d = shape
+    assert train_route(sq, sk, d) == route
+    q, k, v, do = _inputs(dev, n, sq, sk, h, d, seed=3)
+    out, lse = flash_train_fwd(q, k, v, d ** -0.5)
+    first = flash_train_bwd(q, k, v, out, lse, do, d ** -0.5)
     for _ in range(3):
-        again = flash_train_bwd(q, k, v, out, lse, do, 40 ** -0.5)
+        again = flash_train_bwd(q, k, v, out, lse, do, d ** -0.5)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_launches_by_route(dev):
+    """One counted launch a call by wrapper and by route; the device kernels
+    of each in a profile: one on the short route, the forward's one and the
+    backward's two (dQ with delta, then dK and dV) on the tiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {"short": _inputs(dev, 64, 4, 4, 8, 40), "tiled": _inputs(dev, 2, 100, 77, 2, 40)}
+    _build.reset_launch_counts()
+    before = dict(ft.route_counts)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for q, k, v, do in calls.values():
+            out, lse = flash_train_fwd(q, k, v, 0.2)
+            flash_train_bwd(q, k, v, out, lse, do, 0.2)
+        torch.cuda.synchronize()
+    assert _build.launch_counts["flash_train_fwd"] == 2
+    assert _build.launch_counts["flash_train_bwd"] == 2
+    assert {k: ft.route_counts[k] - before[k] for k in before} == {
+        k: 1 for k in before}
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+    for pat, n in (("flash_train_short_fwd_kernel<", 1), ("flash_train_short_bwd_kernel<", 1),
+                   ("flash_train_tiled_fwd_kernel<", 1), ("flash_train_tiled_dq_kernel<", 1),
+                   ("flash_train_tiled_dkdv_kernel<", 1), ("flash_train_tiled_fwd_split", 0)):
+        assert sum(pat in name for name in names) == n, (pat, names)
 
 
 def test_gradient_through_dot_product_attention(dev):
