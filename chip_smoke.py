@@ -159,6 +159,34 @@ Phases, each printed as it ends; any failure exits non-zero:
    counted steps' launches are asserted by route, and the profile's device
    kernels by route (the short route's one kernel a launch, the tiled
    backward's two). Prints the TF32 settings in force.
+17. warm start and the tools (run between phases 14 and 15, the last to
+   use phase 4's stream, so that phases 15 and 16 run with it freed, as
+   they did before this phase was added): the port's package is copied into a
+   temporary directory (its build directory, beside the copy, starts
+   empty); a cold process imports the copy, builds the bench-default
+   ``StreamV2VWrapper`` (512x512, TAESD, DPT-hybrid, int8 cache), prepares
+   it on 8 frames, streams one frame (nvcc builds each library at its
+   first launch) and primes an engine directory (``prime_aot``); a warm
+   process empties the copy's build directory and does the same from that
+   engine directory. Asserted: the manifest lists exactly the libraries
+   the cold frame built; the warm start hit
+   (``aot_hit``), ran no build and left the build directory empty, and
+   every main-path kernel launched; its first frame is bit-equal to the
+   cold one; a copy of the directory with one flipped byte in a library is
+   refused (its sha256) and left as it was. Prints each start's build,
+   load, prepare and first-step seconds, the seconds from process start to
+   the first frame and the seconds in ``_build.build``. Then the tools on
+   phase 4's stream: ``trace_step`` over 8 synchronised replays (each
+   kernel in the frame whose runtime call launched it, by correlation id;
+   the step's kernels, each name as often as the fullest frame holds it,
+   must equal phase 4's profile (a frame short of some lost them in the
+   trace, and they are printed by name), no record may lie outside the
+   frames, and the device ms a frame must be within 3 % of phase 4's; prints the top kernels, families, buckets, the frame's split
+   into host time before the replay, the replay's host time, device busy
+   time and idle time inside the device span of the replay, and host time
+   around it, and the gaps between kernels by width),
+   ``profile_stages`` (each stage captured alone beside the step), and
+   ``parity`` at ``--tiny`` on the card against its own output (inf).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -2723,6 +2751,270 @@ def training_phase(torch, _build, smi, gen, dev):
     return result, entries
 
 
+# ---------------------------------------------------------------------------
+# phase 17: warm start from a primed engine directory, and the tools
+# ---------------------------------------------------------------------------
+
+START_TAG = "START_RESULT "
+START_PROMPT = "a cat in the rain"
+START_TIMEOUT_S = 600
+# the wrappers of the main path, each of which a warm first frame launches
+MAIN_PATH_WRAPPERS = ("stream_attention_int8", "flash_attention", "conv3x3", "conv3x3_s2",
+                      "layer_norm")
+TRACE_FRAMES = 8
+TRACE_DEVICE_TOL = 0.03  # trace_step's device ms a frame against phase 4's profile
+PARITY_FRAMES = 14  # toonyou.yaml's 4 steps: 8 warmup frames, a lag of 3, 3 outputs
+
+
+def start_run(mode: str, root: str, engine_dir: str, out_npy: str, t_spawn: str) -> int:
+    """One start of the bench-default ``StreamV2VWrapper`` in a fresh
+    process, importing the port's copy under ``root`` (its ``BUILD_DIR``,
+    ``root/build/kernels``, is its own): construction, ``prepare`` on 8
+    frames and one frame, its output saved to ``out_npy``. ``cold`` then
+    primes ``engine_dir``; ``warm`` empties the copy's build directory
+    first, loads from ``engine_dir`` and afterwards offers ``load_engines`` a
+    copy of it with one flipped byte in a library. Prints one line,
+    ``START_TAG`` and the times as JSON; ``t_spawn`` is the parent's
+    ``time.time()`` just before it started this process."""
+    import shutil
+
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import live2diff_tpu_torch
+    from live2diff_tpu_torch import aot
+    from live2diff_tpu_torch.ops import _build
+    from live2diff_tpu_torch.wrapper import StreamV2VWrapper
+
+    if not os.path.abspath(live2diff_tpu_torch.__file__).startswith(os.path.abspath(root)):
+        raise AssertionError(f"imported {live2diff_tpu_torch.__file__}, not the copy in {root}")
+    kernels_dir = _build.BUILD_DIR
+    if mode == "warm":
+        shutil.rmtree(kernels_dir, ignore_errors=True)
+    build_calls = []  # seconds in each _build.build call: nvcc and its checks
+    build = _build.build
+
+    def timed_build(names):
+        t0 = time.perf_counter()
+        try:
+            return build(names)
+        finally:
+            build_calls.append(time.perf_counter() - t0)
+
+    _build.build = timed_build
+
+    def built():
+        return sorted(os.listdir(kernels_dir)) if os.path.isdir(kernels_dir) else []
+
+    t0 = time.perf_counter()
+    wrapper = StreamV2VWrapper(BENCH_CONFIG, height=512, width=512, output_type="np",
+                               use_text_encoder=False, kv_cache_dtype="int8",
+                               engine_dir=engine_dir, seed=0)
+    ctor_s = time.perf_counter() - t0
+    aot_s = wrapper.stream._aot_load_s if wrapper.aot_hit else 0.0
+    rng = np.random.RandomState(0)
+    warm_frames = rng.randint(0, 256, (8, 512, 512, 3)).astype(np.uint8)
+    frame = rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    wrapper.prepare(START_PROMPT, warm_frames)
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = wrapper(frame)  # img2img synchronises the card
+    first_step_s = time.perf_counter() - t0
+    to_first_frame_s = time.time() - float(t_spawn)
+    launches = dict(_build.launch_counts)
+    np.save(out_npy, out)
+    result = dict(mode=mode, aot_hit=wrapper.aot_hit, build_s=ctor_s - aot_s, aot_load_s=aot_s,
+                  prepare_s=prepare_s, first_step_s=first_step_s,
+                  to_first_frame_s=to_first_frame_s, build_calls=len(build_calls),
+                  nvcc_s=sum(build_calls), launches=launches, built=built())
+    key = aot.engine_key(wrapper.stream.device)
+    if mode == "cold":
+        t0 = time.perf_counter()
+        result["primed"] = wrapper.prime_aot()
+        result["prime_s"] = time.perf_counter() - t0
+        with open(os.path.join(aot.engine_path(engine_dir, key), aot.MANIFEST)) as f:
+            result["manifest_files"] = sorted(e["file"] for e in json.load(f)["files"].values())
+    else:
+        bad_root = engine_dir + "-tampered"
+        shutil.copytree(engine_dir, bad_root)
+        bad = aot.engine_path(bad_root, key)
+        with open(os.path.join(bad, aot.MANIFEST)) as f:
+            lib = os.path.join(bad, json.load(f)["files"]["flash_attention"]["file"])
+        with open(lib, "rb") as f:
+            data = bytearray(f.read())
+        data[len(data) // 2] ^= 0x01
+        with open(lib, "wb") as f:
+            f.write(data)
+        listing, libs = sorted(os.listdir(bad)), dict(_build._LIBS)
+        refused = not aot.load_engines(wrapper.stream, bad_root)
+        with open(lib, "rb") as f:
+            kept = f.read() == bytes(data) and sorted(os.listdir(bad)) == listing
+        try:
+            aot.verified_libraries(bad, key)
+            reason = None
+        except aot.EngineDirRefused as e:
+            reason = str(e)
+        result["tampered"] = dict(refused=refused, kept=kept, libs_unchanged=_build._LIBS == libs,
+                                  reason=reason)
+        result["built_after"] = built()
+    print(START_TAG + json.dumps(result), flush=True)
+    return 0
+
+
+def start_phase(torch) -> dict:
+    """Phase 17, first part: a cold and a warm start of the bench-default
+    wrapper, each in a process of its own (``start_run``), from a copy of
+    the port whose build directory starts empty."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix="live2diff-start-")
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        shutil.copytree(os.path.join(here, "live2diff_tpu_torch"),
+                        os.path.join(root, "live2diff_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        engines = os.path.join(root, "engines")
+        runs = {}
+        for mode in ("cold", "warm"):
+            out = os.path.join(root, f"{mode}.npy")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--start", mode, root, engines, out,
+                 repr(time.time())],
+                cwd=root, capture_output=True, text=True, timeout=START_TIMEOUT_S)
+            line = next((ln for ln in proc.stdout.splitlines() if ln.startswith(START_TAG)), None)
+            if proc.returncode != 0 or line is None:
+                raise AssertionError(f"{mode} start: rc {proc.returncode}\n{proc.stdout[-3000:]}"
+                                     f"\n{proc.stderr[-6000:]}")
+            runs[mode] = json.loads(line[len(START_TAG):])
+            runs[mode]["first_frame"] = np.load(out)
+        cold, warm = runs["cold"], runs["warm"]
+        # the manifest holds the libraries the cold frame built, and no other
+        if not cold["primed"] or cold["aot_hit"] or cold["built"] != cold["manifest_files"]:
+            raise AssertionError(f"cold start: hit {cold['aot_hit']}, primed {cold['primed']}, "
+                                 f"built {cold['built']}, manifest {cold['manifest_files']}")
+        if not warm["aot_hit"] or warm["build_calls"] or warm["built"] or warm["built_after"]:
+            raise AssertionError(f"warm start: hit {warm['aot_hit']}, {warm['build_calls']} "
+                                 f"build calls, built {warm['built']} {warm['built_after']}")
+        idle = [k for k in MAIN_PATH_WRAPPERS if not warm["launches"][k]]
+        if idle:
+            raise AssertionError(f"warm start: {idle} never launched: {warm['launches']}")
+        a, b = cold.pop("first_frame"), warm.pop("first_frame")
+        if a.shape != (512, 512, 3) or a.dtype != np.uint8 or not np.array_equal(a, b):
+            raise AssertionError(f"warm first frame {b.shape} {b.dtype} differs from the cold "
+                                 f"one {a.shape} {a.dtype}")
+        t = warm["tampered"]
+        if not (t["refused"] and t["kept"] and t["libs_unchanged"] and "sha256" in t["reason"]):
+            raise AssertionError(f"a tampered library: {t}")
+        return dict(cold=cold, warm=warm, first_frames_bit_equal=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tools_phase(torch, main_keep, main_path) -> dict:
+    """Phase 17, second part: the tools on phase 4's kept stream (trace_step,
+    profile_stages) and parity's tiny self-comparison on the card."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from live2diff_tpu_torch.tools import parity, profile_stages, trace_step
+
+    stream, _, frames = main_keep
+    order = itertools.cycle(range(len(frames)))
+
+    def step():
+        main_keep[1], _ = stream(main_keep[1], frames[next(order)])
+
+    seconds, t0 = {}, time.perf_counter()
+    expected = main_path["kernels_per_step"]
+    traced = trace_step.trace(step, stream.device, frames=TRACE_FRAMES, top=12)
+    # every record in the frame that launched it; each frame replays the
+    # same graph, so the names of the fullest frames are the step's kernels
+    # and a frame short of some (dropped_by_frame) lost them in the trace
+    if traced["unassigned"] or traced["kernels_full"] != expected:
+        raise AssertionError(f"trace_step: {traced['kernels_full']} kernels a step (by frame "
+                             f"{traced['kernels_by_frame']}, dropped "
+                             f"{traced['dropped_by_frame']}), {traced['unassigned']} records "
+                             f"launched in no frame {traced['unassigned_names']}; phase 4 "
+                             f"{expected} a step")
+    rel = traced["device_ms"] / main_path["device_ms_per_step"] - 1
+    if abs(rel) > TRACE_DEVICE_TOL:
+        raise AssertionError(f"trace_step: {traced['device_ms']:.3f} device ms a frame, phase "
+                             f"4's profile {main_path['device_ms_per_step']:.3f} ({rel:+.3%})")
+    traced["device_ms_over_phase_4"] = rel + 1
+    seconds["trace_step"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    main_keep[1], stages = profile_stages.profile_stages(stream, main_keep[1], frames[0])
+    seconds["profile_stages"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    root = tempfile.mkdtemp(prefix="live2diff-parity-")
+    try:
+        rng = np.random.RandomState(0)
+        video = os.path.join(root, "in")
+        os.makedirs(video)
+        for i in range(PARITY_FRAMES):
+            Image.fromarray(rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)).save(
+                os.path.join(video, f"{i:03d}.png"))
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                              "toonyou.yaml")
+        common = [video, config, "--tiny", "--seed", "7"]
+        first = parity.run(parity.build_argparser().parse_args(
+            common + ["--output", os.path.join(root, "ours")]))
+        again = parity.run(parity.build_argparser().parse_args(
+            common + ["--reference", os.path.join(root, "ours")]))
+        if again["value"] != float("inf") or not again["scored_frames"] == first["frames"] == 3:
+            raise AssertionError(f"parity: a self-comparison gave {again}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["parity"] = time.perf_counter() - t0
+    return dict(trace=traced, stages=stages, parity=again, seconds=seconds)
+
+
+def phase_17(torch, main_keep, main_path, smi) -> None:
+    """Phase 17 and its report: ``start_phase``, then ``tools_phase``."""
+    t_phase = time.perf_counter()
+    started = start_phase(torch)
+    t_started = time.perf_counter() - t_phase
+    for mode in ("cold", "warm"):
+        r = started[mode]
+        print(f"{mode} start: {json.dumps(r)}")
+        print(f"{mode} start: build {r['build_s']:.3f} s, aot load {r['aot_load_s']:.3f} s, "
+              f"prepare {r['prepare_s']:.3f} s, first step {r['first_step_s']:.3f} s, process "
+              f"start to first frame {r['to_first_frame_s']:.3f} s, in _build.build (nvcc) "
+              f"{r['nvcc_s']:.3f} s ({smi})")
+    print(f"warm first frame bit-equal to the cold one; a tampered library refused and kept: "
+          f"{started['warm']['tampered']['reason']}")
+    tooled = tools_phase(torch, main_keep, main_path)
+    traced, gaps = tooled["trace"], tooled["trace"]["gaps"]
+    print("trace_step: " + json.dumps({k: traced[k] for k in (
+        "kernels", "kernels_by_frame", "unassigned", "device_ms", "buckets", "gaps")}))
+    print(f"trace_step top kernels: {json.dumps(traced['top'])}")
+    print(f"trace_step families: {json.dumps(traced['families'])}")
+    print(f"trace_step: {traced['kernels_full']} kernels a step (by frame "
+          f"{traced['kernels_by_frame']}, by correlation id; dropped from the trace "
+          f"{json.dumps(traced['dropped_by_frame'])}) and {traced['device_ms']:.3f} "
+          f"device ms a frame (x{traced['device_ms_over_phase_4']:.4f} phase 4's profile); "
+          f"frame p50 {gaps['wall_ms_p50']:.3f} ms = the replay's device span "
+          f"{gaps['span_ms_p50']:.3f} (busy {gaps['busy_ms_p50']:.3f}, idle inside "
+          f"{gaps['idle_in_span_ms_p50']:.3f}) + host {gaps['host_ms']:.3f} (before the replay "
+          f"{gaps['before_replay_ms_p50']:.3f}); the replay's host time (the graph's launch) "
+          f"{gaps['launch_ms_p50']:.3f}; the span under the profiler "
+          f"{gaps['profiled_span_ms_p50']:.3f} ({smi})")
+    print(f"profile_stages on phase 4's stream, ms: {json.dumps(tooled['stages'])} ({smi})")
+    print(f"parity, --tiny on the card against its own output: {json.dumps(tooled['parity'])}")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s, the two starts "
+          f"{t_started:.1f} s of it; the tools: {json.dumps(tooled['seconds'])}")
+
+
 def main() -> int:
     import torch
 
@@ -2837,7 +3129,7 @@ def main() -> int:
                              f"{MAIN_PATH_LAUNCHES_PER_STEP}")
     main_path = headline(result)
     dev_main = result["device_kernels_per_step"]
-    main_keep = list(kept[0])  # phase 4's stream, for phases 13 and 14
+    main_keep = list(kept[0])  # phase 4's stream, for phases 13, 14 and 17
     del result
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
@@ -2984,6 +3276,11 @@ def main() -> int:
               f"(x{r['aggregate_over_single']:.3f}), masked "
               f"round x{r['masked_over_plain']:.3f} the plain one, peak memory "
               f"{r['peak_memory_net_bytes'] / 2**30:.2f} GiB net ({smi})")
+
+    phase("warm start and the tools at full width (phase 17, run before phase 15): a cold "
+          "and a warm start of the bench-default wrapper, each in a process of its own; "
+          "trace_step and profile_stages on phase 4's stream; parity's tiny self-comparison")
+    phase_17(torch, main_keep, main_path, smi)
     del main_keep
 
     phase("demo server over localhost: serve/server.py --sessions 2 at 512x512, two "
@@ -3041,4 +3338,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--start"]:  # a process of phase 17 (start_phase)
+        sys.exit(start_run(*sys.argv[2:]))
     sys.exit(main())

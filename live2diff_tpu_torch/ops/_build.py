@@ -7,6 +7,9 @@ into its own shared library with a plain C interface, and loaded with
 and of the shared headers (``csrc/*.cuh``), so an edited source or header is
 rebuilt and an unchanged one is reused.
 
+``register`` loads a library built elsewhere in place of a build: the warm
+start from a primed engine directory (``aot.py``).
+
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
 """
@@ -114,6 +117,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _LIBS[name] = lib
         return lib
+
+
+def loaded() -> Dict[str, str]:
+    """{source name: path} of every library loaded in this process."""
+    with _LOCK:
+        return {name: lib._name for name, lib in _LIBS.items()}
+
+
+def register(name: str, path: str) -> ctypes.CDLL:
+    """Load the already built library at ``path`` as ``csrc/<name>.cu``'s:
+    ``load(name)`` then returns it, and neither builds nor looks in
+    ``BUILD_DIR``. Loading a library runs its initialisers: ``path`` must be
+    as trusted as this package's own sources (``aot.py``)."""
+    lib = ctypes.CDLL(path)
+    with _LOCK:
+        _LIBS[name] = lib
+    return lib
 
 
 def check(rc: int, what: str) -> None:

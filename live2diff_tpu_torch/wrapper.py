@@ -9,9 +9,16 @@ On the card each frame is one replay of the captured step
 (``stream/graph.py``), and ``prepare`` captures it, so the first frame
 replays too. Both live updates write in place what the graph reads: the
 prompt through ``set_prompt``, a LoRA's delta into the parameters
-themselves, whose addresses the graph holds. ``engine_dir`` is accepted for
-the JAX signature and is not used yet: saving and loading built programs
-(the JAX package's AOT warm start) is ROADMAP queue 1, item 7.
+themselves, whose addresses the graph holds.
+
+``engine_dir`` holds primed kernel libraries (``aot.py``): on the card the
+constructor loads them from ``<engine_dir>/aot/<key>/`` when it is primed
+for this card and toolchain (``aot_hit``), before any kernel launches,
+so no ``nvcc`` runs; ``prime_aot()`` writes them. The directory must be as
+trusted as the package's sources: loading a library runs its code. The
+JAX wrapper also points XLA's persistent compilation cache at
+``<engine_dir>/xla_cache``; the port has no counterpart beyond the build
+directory (``build/kernels/``), which holds the libraries it builds.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, List, Literal, Optional, Union
 import numpy as np
 import torch
 
+from .aot import load_engines, save_engines
 from .builder import BuiltPipeline, build_pipeline, encode_prompt_for_pipeline
 from .convert.lora import lora_delta_state_dict
 from .utils.filter import SimilarImageFilter
@@ -69,7 +77,9 @@ class StreamV2VWrapper:
         device: Optional[Union[str, torch.device]] = None,
     ):
         """The JAX wrapper's arguments, plus ``device``: the card unless
-        ``"cpu"`` is asked for. ``engine_dir`` is not used yet."""
+        ``"cpu"`` is asked for. On the card the kernel libraries are loaded
+        from ``engine_dir`` where it is primed for this card and toolchain
+        (``aot_hit``), and built at first use otherwise."""
         self.height, self.width = height, width
         self.output_type = output_type
         self.seed = seed
@@ -101,6 +111,9 @@ class StreamV2VWrapper:
         self.stream = self.built.stream
         self.device = self.stream.device
         self.batch_size = self.built.schedule.num_steps
+        self.engine_dir = engine_dir
+        # a miss (or the CPU) builds the kernels at first use
+        self.aot_hit = load_engines(self.stream, engine_dir)
         self.similar_filter = (
             SimilarImageFilter(similar_image_filter_threshold,
                                similar_image_filter_max_skip_frame)
@@ -111,6 +124,12 @@ class StreamV2VWrapper:
         self.inference_time_list: List[float] = []
         self.first_step_warm_s = 0.0
         self.capture_s = 0.0
+
+    def prime_aot(self) -> bool:
+        """Write this pipeline's kernel libraries (built now where they
+        are not yet) into ``engine_dir``, so that later processes start
+        without ``nvcc``. Returns False on the CPU, which has none."""
+        return save_engines(self.stream, self.engine_dir) is not None
 
     # ------------------------------------------------------------------
 

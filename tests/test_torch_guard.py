@@ -213,3 +213,27 @@ def test_training_kernels_take_their_plain_versions_on_cpu_tensors(monkeypatch):
     assert _build.launch_counts == before
     assert "flash_train" in _build.SOURCES
     assert {"flash_train_fwd", "flash_train_bwd"} <= set(_build.launch_counts)
+
+
+def test_importing_the_warm_start_and_the_tools_pulls_in_no_jax_and_no_plotting():
+    """aot.py, utils/timing.py, utils/attn_vis.py and every tool, each
+    imported alone: no JAX, no package of the JAX side, and no matplotlib,
+    Pillow or imageio (the card's host has no matplotlib and no imageio)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import live2diff_tpu_torch.tools as tools\n"
+        "names = ['live2diff_tpu_torch.aot', 'live2diff_tpu_torch.utils.timing',\n"
+        "         'live2diff_tpu_torch.utils.attn_vis']\n"
+        "names += [m.name for m in pkgutil.iter_modules(tools.__path__, tools.__name__ + '.')]\n"
+        "assert {'live2diff_tpu_torch.tools.' + n for n in ('psnr', 'parity', 'profile_stages',"
+        " 'trace_step', 'aot_probe')} <= set(names), names\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax',"
+        " 'live2diff_tpu', 'matplotlib', 'PIL', 'imageio')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
