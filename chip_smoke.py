@@ -187,6 +187,35 @@ Phases, each printed as it ends; any failure exits non-zero:
    around it, and the gaps between kernels by width),
    ``profile_stages`` (each stage captured alone beside the step), and
    ``parity`` at ``--tiny`` on the card against its own output (inf).
+18. tensor and data parallelism (after phase 16), the JAX package's
+   multi-chip path (``live2diff_tpu/parallel/``, ``__graft_entry__.
+   dryrun_multichip``) on ``parallel/{mesh,tp,infer}.py``. The card is one,
+   and NCCL refuses two ranks on one device, so two ranks share it over
+   gloo, which takes CUDA tensors in ``all_reduce`` and ``broadcast``; NCCL
+   runs the same helpers across cards. (a) In this process: #1 (int8 and
+   bf16 cache) and #3 (d-major, and the fp32 training pair forward and
+   backward) against their plain versions at every shape one tp rank of
+   tp = 2, 4 and 8 gives the full-width UNet (motion C/tp channels of 8/tp
+   heads, spatial 8/tp heads at 512x512, phase 16's training shapes at
+   8/tp heads), each beside its tp = 1 row, with its route and cluster.
+   Then two ranks (``chip_smoke.py --tp-rank``), each: (b) ``UNetConfig()``
+   at 512x512, 2 steps, bf16, int8 cache, random weights from seed 0, the
+   warmup on 8 frames then 8 stream frames, eager (a step with gloo
+   collectives cannot be captured in a CUDA graph), unsharded and then at
+   tp = 2 on the same inputs: every frame within 1e-2 relative RMS, the
+   cache slabs printed (the share of int8 codes that differ, by at most
+   one), at least 60 % of the parameter bytes on tp, 40 #1 and 32 #3
+   launches a rank's step and no other kernel; (c) the train step at
+   phase 16's widths (256x256, batch 2, clip 4, fp32, TF32 off, every
+   weight drawn) at tp = 2 against an unsharded twin in the same process,
+   3 steps: the loss within 1e-5, every motion gradient within 1e-4 of its
+   largest element, the replicated motion parameters bit-equal across the
+   tp ranks after each step, the step ms and peak memory printed (both
+   ranks share the card: not a speed figure); (d) 4 sessions of phase 14's
+   pipeline without depth over dp = 2, each rank's ``MultiStream`` of 2,
+   against one ``MultiStream`` of 4 here (uint8 outputs within 2 levels,
+   noised latents within 0.05 relative RMS); then ``dryrun_multichip``.
+   Prints the phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -420,21 +449,27 @@ def rel_rms(out, ref) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_stream_attention(torch, gen, dev, cache: str):
+# (C, HW, calls per 512x512 step, calls per 768x512 step): the 4 UNet levels
+# of each row, 10 stream-attention calls each per stream step
+STREAM_LEVELS = ((320, 4096, 10, 0), (640, 1024, 10, 0), (1280, 256, 10, 0), (1280, 64, 10, 0),
+                 (320, 6144, 0, 10), (640, 1536, 0, 10), (1280, 384, 0, 10), (1280, 96, 0, 10))
+
+
+def check_stream_attention(torch, gen, dev, cache: str, tp: int = 1):
+    """The stream-attention kernel against its plain version at the stream
+    steps' shapes; at ``tp`` > 1 at one tp rank's shapes of the 512x512
+    step (C/tp channels of 8/tp heads)."""
     from live2diff_tpu_torch.ops.stream_attention import (
         plan, stream_window_attention_bf16, stream_window_attention_int8,
         stream_window_attention_plain,
     )
 
-    s, heads, window = 2, 8, 16
+    s, heads, window = 2, 8 // tp, 16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    # (C, HW, calls per 512x512 step, calls per 768x512 step): the 4 UNet
-    # levels of each row, 10 calls each per stream step
-    for c, hw, calls, calls_wide in (
-        (320, 4096, 10, 0), (640, 1024, 10, 0), (1280, 256, 10, 0), (1280, 64, 10, 0),
-        (320, 6144, 0, 10), (640, 1536, 0, 10), (1280, 384, 0, 10), (1280, 96, 0, 10),
-    ):
+    levels = STREAM_LEVELS if tp == 1 else [(c // tp, hw, calls, 0)
+                                            for c, hw, calls, _ in STREAM_LEVELS if calls]
+    for c, hw, calls, calls_wide in levels:
         q = torch.randn(s, hw, c, generator=gen, device=dev).to(torch.bfloat16)
         extra = torch.randn(s, window, heads, hw, generator=gen, device=dev)
         extra[:, 9:] = float("-inf")  # an early-stream mask: slots 9..15 not visible
@@ -466,7 +501,8 @@ def check_stream_attention(torch, gen, dev, cache: str):
         staging, cluster = plan(s, hw, c, heads, data.element_size(), sms)
         ms = time_ms(lambda: kernel(*args), 50)
         rows.append(dict(
-            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}", calls=calls,
+            shape=f"q[{s},{hw},{c}] cache[{s},2,{window},{c},{hw}] {cache}"
+                  + (f" heads {heads} (tp {tp})" if tp > 1 else ""), calls=calls, tp=tp,
             calls_768x512=calls_wide, prepare_calls=0, max_abs_err=err, rel_err=rel, tol=2e-2,
             route=f"{staging}, cluster {cluster}", ms=ms,
             plain_ms=time_ms(lambda: stream_window_attention_plain(*plain_args), 3),
@@ -476,35 +512,44 @@ def check_stream_attention(torch, gen, dev, cache: str):
     return rows
 
 
-def check_flash(torch, gen, dev):
+# (B, Sq, Sk, H, D, calls per stream step, calls per 768x512 step, calls in
+# prepare). The stream step: self- and cross-attention (77 text tokens) of
+# the 2-step batch at the 4 levels (the UNet's 32), and the DPT's ViT
+# self-attention over 577 tokens, 12 heads, in each of its 12 blocks.
+# prepare(): spatial attention over the 8 warmup frames (B = 8), the
+# bidirectional motion attention over those 8 frames with the positions
+# folded into the batch (B = HW, S = 8), and the ViT over the 8 warmup
+# frames. The 768x512 step: the same at that row's levels (S = 6144, 1536,
+# 384, 96) and the ViT, whose input is 384x384 at either size
+FLASH_SHAPES = (
+    (2, 4096, 4096, 8, 40, 5, 0, 0), (2, 1024, 1024, 8, 80, 5, 0, 0),
+    (2, 256, 256, 8, 160, 5, 0, 0), (2, 64, 64, 8, 160, 1, 0, 0),
+    (2, 4096, 77, 8, 40, 5, 0, 0), (2, 1024, 77, 8, 80, 5, 0, 0),
+    (2, 256, 77, 8, 160, 5, 0, 0), (2, 64, 77, 8, 160, 1, 0, 0),
+    (1, 577, 577, 12, 64, 12, 12, 0),
+    (2, 6144, 6144, 8, 40, 0, 5, 0), (2, 1536, 1536, 8, 80, 0, 5, 0),
+    (2, 384, 384, 8, 160, 0, 5, 0), (2, 96, 96, 8, 160, 0, 1, 0),
+    (2, 6144, 77, 8, 40, 0, 5, 0), (2, 1536, 77, 8, 80, 0, 5, 0),
+    (2, 384, 77, 8, 160, 0, 5, 0), (2, 96, 77, 8, 160, 0, 1, 0),
+    (8, 4096, 4096, 8, 40, 0, 0, 10), (4096, 8, 8, 8, 40, 0, 0, 20),
+    (1024, 8, 8, 8, 80, 0, 0, 20), (256, 8, 8, 8, 160, 0, 0, 20), (64, 8, 8, 8, 160, 0, 0, 20),
+    (8, 577, 577, 12, 64, 0, 0, 12),
+)
+
+
+def check_flash(torch, gen, dev, tp: int = 1):
+    """The d-major flash kernel against its plain version at the stream
+    steps' and prepare's shapes; at ``tp`` > 1 at one tp rank's shapes of
+    the UNet's 512x512 step (8/tp heads; the ViT is not cut)."""
     import torch.nn.functional as F
 
     from live2diff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     rows = []
-    # (B, Sq, Sk, H, D, calls per stream step, calls in prepare). The stream
-    # step: self- and cross-attention (77 text tokens) of the 2-step batch
-    # at the 4 levels, and the DPT's ViT self-attention over 577 tokens,
-    # 12 heads, in each of its 12 blocks. prepare(): spatial attention over
-    # the 8 warmup frames (B = 8), the bidirectional motion attention over
-    # those 8 frames with the positions folded into the batch (B = HW,
-    # S = 8), and the ViT over the 8 warmup frames.
-    # calls per 768x512 step: the same at that row's levels (S = 6144, 1536,
-    # 384, 96) and the ViT, whose input is 384x384 at either size
-    for b, sq, sk, h, d, calls, calls_wide, prep in (
-        (2, 4096, 4096, 8, 40, 5, 0, 0), (2, 1024, 1024, 8, 80, 5, 0, 0),
-        (2, 256, 256, 8, 160, 5, 0, 0), (2, 64, 64, 8, 160, 1, 0, 0),
-        (2, 4096, 77, 8, 40, 5, 0, 0), (2, 1024, 77, 8, 80, 5, 0, 0),
-        (2, 256, 77, 8, 160, 5, 0, 0), (2, 64, 77, 8, 160, 1, 0, 0),
-        (1, 577, 577, 12, 64, 12, 12, 0),
-        (2, 6144, 6144, 8, 40, 0, 5, 0), (2, 1536, 1536, 8, 80, 0, 5, 0),
-        (2, 384, 384, 8, 160, 0, 5, 0), (2, 96, 96, 8, 160, 0, 1, 0),
-        (2, 6144, 77, 8, 40, 0, 5, 0), (2, 1536, 77, 8, 80, 0, 5, 0),
-        (2, 384, 77, 8, 160, 0, 5, 0), (2, 96, 77, 8, 160, 0, 1, 0),
-        (8, 4096, 4096, 8, 40, 0, 0, 10), (4096, 8, 8, 8, 40, 0, 0, 20),
-        (1024, 8, 8, 8, 80, 0, 0, 20), (256, 8, 8, 8, 160, 0, 0, 20), (64, 8, 8, 8, 160, 0, 0, 20),
-        (8, 577, 577, 12, 64, 0, 0, 12),
-    ):
+    shapes = FLASH_SHAPES if tp == 1 else [
+        (b, sq, sk, h // tp, d, calls, 0, 0)
+        for b, sq, sk, h, d, calls, _, _ in FLASH_SHAPES if calls and h == 8]
+    for b, sq, sk, h, d, calls, calls_wide, prep in shapes:
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, sk, h, d, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, sk, h, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -520,7 +565,7 @@ def check_flash(torch, gen, dev):
         b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                            (4 * b * h * sq * sk * d, "bf16"), exps=b * h * sq * sk)
         rows.append(dict(
-            shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls,
+            shape=f"q[{b},{sq},{h},{d}] k[{b},{sk},{h},{d}]", calls=calls, tp=tp,
             calls_768x512=calls_wide, prepare_calls=prep,
             max_abs_err=err, rel_err=rel, tol=2e-2,
             ms=time_ms(lambda: flash_attention(q, k, v, scale), 20),
@@ -2748,7 +2793,7 @@ def training_phase(torch, _build, smi, gen, dev):
             | {"calls": sum(r["calls"] for r in rows if r["route"] == route)}
             for route in TRAIN_ROUTES}
         entries.append(entry)
-    return result, entries
+    return result, entries, dict(shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -3013,6 +3058,388 @@ def phase_17(torch, main_keep, main_path, smi) -> None:
     print(f"parity, --tiny on the card against its own output: {json.dumps(tooled['parity'])}")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s, the two starts "
           f"{t_started:.1f} s of it; the tools: {json.dumps(tooled['seconds'])}")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor and data parallelism, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2
+TP_TAG = "TP_RESULT "
+TP_TIMEOUT_S = 400
+TP_PER_RANK = (2, 4, 8)  # the tp of the per-rank kernel shapes (a)
+# (b) the full-width stream step at tp = 2: bench.py's 512x512 (latent 64),
+# 2 steps, bf16, int8 cache; the warmup, then 8 frames through the window
+TP_STREAM = dict(latent=64, steps=2, frames=8, text_len=77)
+# relative RMS of a frame against the unsharded step: the row-parallel sums
+# round to bf16 once more a block (partials, then their sum)
+TP_RMS_TOL = 1e-2
+# each rank's launches a stream step: #1 at every temporal attention, #3 at
+# the UNet's spatial attentions (phase 4's 44 less the ViT's 12), nothing else
+TP_STEP_LAUNCHES = {"stream_attention_int8": 40, "flash_attention": 32}
+# (c) the train step at tp = 2 at phase 16's widths (256x256, batch 2, clip
+# 4, fp32, TF32 off), every weight drawn (the zero-initialised output
+# projections too, so every motion gradient is nonzero), against one
+# process on the same card, after each of 3 steps
+TP_TRAIN_STEPS = 3
+TP_LOSS_TOL, TP_GRAD_TOL = 1e-5, 1e-4
+# (d) 4 sessions over dp = 2 (2 a rank, no collective) against one process
+# with 4: phase 14's pipeline without depth, phase 14's bounds (the batched
+# step at another batch rounds otherwise in bf16)
+TP_SESSIONS, TP_SESSION_ROUNDS = 4, 4
+
+
+def per_rank_kernel_rows(torch, gen, dev, kernels, train_shapes) -> dict:
+    """Phase 18 (a): #1 (int8 and bf16 cache) and #3 (d-major, and the fp32
+    training pair) against their plain versions at each tp rank's shapes of
+    the full-width UNet for tp in TP_PER_RANK: C/tp channels of 8/tp motion
+    heads, 8/tp spatial heads, the training step's shapes (phase 16) at
+    8/tp heads. The rows join their kernel's entry (``tp_rows``); each is
+    printed beside the tp = 1 row of its shape."""
+    by_name = {k["name"]: k for k in kernels}
+    out = {}
+    for name, check in (
+            ("stream_attention_int8",
+             lambda tp: check_stream_attention(torch, gen, dev, "int8", tp)),
+            ("stream_attention_bf16",
+             lambda tp: check_stream_attention(torch, gen, dev, "bf16", tp)),
+            ("flash_attention", lambda tp: check_flash(torch, gen, dev, tp))):
+        rows = [r for tp in TP_PER_RANK for r in check(tp)]
+        by_name[name]["tp_rows"] = rows
+        out[name] = rows
+    for tp in TP_PER_RANK:
+        shapes = {(q[:2] + (q[2] // tp,) + q[3:], k[:2] + (k[2] // tp,) + k[3:], scale): calls
+                  for (q, k, scale), calls in train_shapes.items()}
+        fwd, bwd = check_train_attention(torch, gen, dev, shapes)
+        for name, rows in (("flash_train_fwd", fwd), ("flash_train_bwd", bwd)):
+            for r in rows:
+                r["tp"] = tp
+            by_name[name].setdefault("tp_rows", []).extend(rows)
+            out.setdefault(name, []).extend(rows)
+    for k in by_name.values():  # a rank's step at each tp: sum over shapes of calls x ms
+        if "tp_rows" in k:
+            k["tp_totals"] = {str(tp): {key: (None if any(r[key] is None for r in rows)
+                                             else sum(r["calls"] * r[key] for r in rows))
+                                        for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                              for tp in TP_PER_RANK
+                              for rows in [[r for r in k["tp_rows"] if r["tp"] == tp]]}
+    return out
+
+
+def print_per_rank_rows(kernels, smi) -> None:
+    """Each per-rank row beside its tp = 1 row (the same level or call)."""
+    def key(name, r):
+        shape = r["shape"].split(" heads")[0]
+        if name.startswith("stream"):  # q[s,hw,c]: the level's HW
+            return shape.split(",")[1]
+        dims = [int(x) for x in re.findall(r"\d+", shape.split("scale")[0])]
+        return dims[0], dims[1], dims[5]  # q[b,sq,h,d] k[b,sk,h,d]: b, sq, sk
+
+    for k in kernels:
+        if "tp_rows" not in k:
+            continue
+        base = {key(k["name"], r): r for r in k["shapes"]}
+        for r in k["tp_rows"]:
+            one = base.get(key(k["name"], r))
+            route = f" route ({r['route']})" if "route" in r else ""
+            print(f"{k['name']:22s} tp {r['tp']} {r['shape']:56s}{route} rel {r['rel_err']:.2e} "
+                  f"ms {r['ms']:.4f} (tp 1: {one['ms'] if one else None}) plain "
+                  f"{r['plain_ms']:.3f} bound {r['bound_ms']:.4f} ({r['bound_by']}) library "
+                  f"{r['library_ms']} calls {r['calls']}")
+        print(f"{k['name']:22s} a rank's {k.get('per_what', 'stream step')} by tp: "
+              f"{json.dumps(k['tp_totals'])}; tp 1 {k['ms']:.4f} ms ({smi})")
+
+
+# the control beside (b): the unsharded step against itself with 1 % of
+# the warmup latents' elements moved by 2^-7 of their value (one bf16 ulp
+# or two): what a perturbation far below bf16's rounding does to the
+# outputs over the UNet's depth, the scale on which (b)'s error reads
+TP_NUDGE_SHARE, TP_NUDGE = 0.01, 2.0 ** -7
+
+
+def nudged_stream_control(torch, config) -> dict:
+    """The unsharded stream of (b), on its inputs and on nudged ones: each
+    frame's relative RMS and the int8 codes that differ."""
+    from live2diff_tpu_torch.parallel.infer import (
+        compare_caches, random_unet, run_stream, stream_inputs,
+    )
+
+    dev = torch.device("cuda")
+    unet = random_unet(config, 0, torch.bfloat16, dev)
+    inputs = stream_inputs(config, TP_STREAM["latent"], TP_STREAM["steps"], TP_STREAM["frames"],
+                           TP_STREAM["text_len"], 1, torch.bfloat16, dev)
+    runs = []
+    for nudge in (False, True):
+        ins = dict(inputs)
+        if nudge:
+            gen = torch.Generator(device=dev).manual_seed(3)
+            pick = torch.rand(ins["warm_sample"].shape, generator=gen, device=dev) < TP_NUDGE_SHARE
+            ins["warm_sample"] = torch.where(pick, ins["warm_sample"] * (1 + TP_NUDGE),
+                                             ins["warm_sample"])
+        caches = config.init_caches(TP_STREAM["latent"], TP_STREAM["latent"], TP_STREAM["steps"],
+                                    torch.int8, dev)
+        runs.append(run_stream(unet, caches, ins)[:2])
+    (ref, ref_caches), (out, caches) = runs
+    return {"rel_rms": [rel_rms(o, r) for o, r in zip(out, ref)],
+            "caches": compare_caches(caches, ref_caches)}
+
+
+def tp_stream_part(torch, mesh) -> dict:
+    """(b) on one rank: ``tp_stream_check`` of ``UNetConfig()`` at
+    TP_STREAM, asserted."""
+    from live2diff_tpu_torch.models.unet import UNetConfig
+    from live2diff_tpu_torch.parallel.infer import tp_stream_check
+
+    t0 = time.perf_counter()
+    report = tp_stream_check(mesh, UNetConfig(), **TP_STREAM, device="cuda")
+    report["seconds"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        report["control"] = nudged_stream_control(torch, UNetConfig())
+    if not max(report["rel_rms"]) <= TP_RMS_TOL:
+        raise AssertionError(f"tp stream: relative RMS {report['rel_rms']} over {TP_RMS_TOL}")
+    if report["param_bytes_on_tp"] < 0.60:
+        raise AssertionError(f"tp stream: {report['param_bytes_on_tp']:.3f} of the parameter "
+                             "bytes on tp")
+    if any(frame != TP_STEP_LAUNCHES for frame in report["launches"]):
+        raise AssertionError(f"tp stream: launches a step {report['launches']}, expected "
+                             f"{TP_STEP_LAUNCHES}")
+    return report
+
+
+def tp_train_part(torch, mesh) -> dict:
+    """(c) on one rank: TP_TRAIN_STEPS steps at tp against one process (an
+    unsharded twin in this process, stepped on the same batch and draws),
+    the loss, every motion gradient (this rank's slab of the twin's), and
+    the replicated motion parameters bit-equal across the tp ranks."""
+    import torch.distributed as dist
+
+    from live2diff_tpu_torch.models.unet import UNetConfig
+    from live2diff_tpu_torch.parallel.infer import random_unet
+    from live2diff_tpu_torch.parallel.mesh import Mesh
+    from live2diff_tpu_torch.parallel.tp import shard_params, take_slab
+    from live2diff_tpu_torch.parallel.train import (
+        TrainState, is_motion_param, make_optimizer, make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    config = UNetConfig(cond_mapping=False)  # the trainer's default: no depth branch
+    lat = TRAIN_CONFIG["height"] // 8
+    b, f = TRAIN_CONFIG["batch"], TRAIN_CONFIG["clip_len"]
+
+    def state(unet):
+        opt = make_optimizer(unet, TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"])
+        return TrainState(0, unet, opt, torch.Generator(device=dev).manual_seed(5))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    unet = random_unet(config, 0, torch.float32, dev)
+    layout = shard_params(unet, mesh)
+    ours = state(unet)
+    step = make_train_step(unet, ours.optimizer, mesh)
+    torch.cuda.synchronize()
+    sharded_bytes = torch.cuda.memory_allocated() - base
+    twin = state(random_unet(config, 0, torch.float32, dev))
+    twin_step = make_train_step(twin.unet, twin.optimizer, Mesh())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"latents": torch.randn(b, f, lat, lat, 4, generator=gen, device=dev),
+             "text": torch.randn(b, 77, config.cross_attention_dim, generator=gen, device=dev)}
+    replicated = [n for n, p in unet.named_parameters()
+                  if is_motion_param(n) and n not in layout.specs]
+    out = {"loss": [], "loss_twin": [], "grad_err": [], "step_ms": [], "twin_step_ms": [],
+           "replicated_params": len(replicated), "sharded_bytes": sharded_bytes}
+    for _ in range(TP_TRAIN_STEPS):
+        twin.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()  # both models, the twin's AdamW state
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ours, loss = step(ours, batch)
+        loss = float(loss)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out.setdefault("step_peak_bytes_net", []).append(
+            torch.cuda.max_memory_allocated() - resident)
+        t0 = time.perf_counter()
+        twin, twin_loss = twin_step(twin, batch)
+        twin_loss = float(twin_loss)
+        out["twin_step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if not abs(loss - twin_loss) <= TP_LOSS_TOL * abs(twin_loss):
+            raise AssertionError(f"tp train: loss {loss} against one process's {twin_loss}")
+        worst = 0.0
+        params = dict(unet.named_parameters())
+        for name, p in twin.unet.named_parameters():
+            if not is_motion_param(name):
+                continue
+            ref = p.grad
+            if name in layout.specs:
+                ref = take_slab(ref, layout.specs[name], mesh.tp_rank, mesh.tp)
+            err = float((params[name].grad - ref).abs().max() / p.grad.abs().max())
+            if not err <= TP_GRAD_TOL:
+                raise AssertionError(f"tp train: {name} gradient {err:.3e} of its max off")
+            worst = max(worst, err)
+        flat = torch.cat([params[n].detach().flatten() for n in replicated])
+        theirs = flat.clone()
+        dist.broadcast(theirs, src=mesh.dp_rank * mesh.tp, group=mesh.tp_group)
+        if not torch.equal(flat, theirs):
+            raise AssertionError("tp train: replicated motion parameters differ across tp ranks")
+        out["loss"].append(loss)
+        out["loss_twin"].append(twin_loss)
+        out["grad_err"].append(worst)
+    return out
+
+
+def tp_rank_run(rank: str, port: str, out_dir: str) -> int:
+    """One of phase 18's two ranks (a process of its own): gloo over
+    localhost with CUDA tensors, (b) and (c) at (dp, tp) = (1, 2), (d) at
+    (2, 1), then ``dryrun_multichip``. Prints ``TP_TAG`` and its results as
+    JSON; (d)'s outputs go to ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank = int(rank)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_WORLD, rank=rank)
+    try:
+        from live2diff_tpu_torch.parallel.infer import dryrun_multichip, multi_session_run
+        from live2diff_tpu_torch.parallel.mesh import make_mesh
+
+        tp_mesh, dp_mesh = make_mesh(), make_mesh(tp=1)
+
+        assert (tp_mesh.dp, tp_mesh.tp, dp_mesh.dp, dp_mesh.tp) == (1, 2, 2, 1)
+        result, seconds = {}, {}
+        t0 = time.perf_counter()
+        result["stream"] = tp_stream_part(torch, tp_mesh)
+        seconds["stream"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["train"] = tp_train_part(torch, tp_mesh)
+        seconds["train"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sessions = multi_session_run(dp_mesh, TP_SESSIONS, TP_SESSION_ROUNDS, latent=64,
+                                     device="cuda", config=BENCH_CONFIG, unet_overrides=None,
+                                     output_uint8=True)
+        np.savez(os.path.join(out_dir, f"sessions{rank}.npz"), **sessions)
+        seconds["sessions"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dryrun_multichip(tp_mesh)
+        seconds["dryrun_multichip"] = time.perf_counter() - t0
+        result["seconds"] = seconds
+        result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        print(TP_TAG + json.dumps(result), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_phase(torch, gen, dev, kernels, train_shapes, smi) -> dict:
+    """Phase 18: (a) here, then two ranks (``tp_rank_run``) for (b)-(d) and
+    ``dryrun_multichip``, then (d)'s one-process reference here."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from live2diff_tpu_torch.parallel.infer import multi_session_run
+    from live2diff_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    per_rank_kernel_rows(torch, gen, dev, kernels, train_shapes)
+    print_per_rank_rows(kernels, smi)
+    t_kernels = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="live2diff-tp-")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                   str(r), str(port), out_dir],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(TP_WORLD)]
+        try:
+            logs = [p.communicate(timeout=TP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        t_ranks = time.perf_counter() - t0
+        results, failed = [], []
+        for r, (p, (stdout, stderr)) in enumerate(zip(procs, logs)):
+            line = next((ln for ln in stdout.splitlines() if ln.startswith(TP_TAG)), None)
+            if p.returncode != 0 or line is None:
+                failed.append(f"tp rank {r}: rc {p.returncode}\n{stdout[-3000:]}\n"
+                              f"{stderr[-5000:]}")
+                continue
+            for ln in stdout.splitlines():
+                if ln.startswith("dryrun_multichip"):
+                    print(f"rank {r}: {ln}")
+            results.append(json.loads(line[len(TP_TAG):]))
+        if failed:
+            raise AssertionError("\n".join(failed))
+        t0 = time.perf_counter()
+        one = multi_session_run(Mesh(), TP_SESSIONS, TP_SESSION_ROUNDS, latent=64, device="cuda",
+                                config=BENCH_CONFIG, unet_overrides=None, output_uint8=True)
+        t_one = time.perf_counter() - t0
+        per = TP_SESSIONS // TP_WORLD
+        sessions = []
+        for r in range(TP_WORLD):
+            got = np.load(os.path.join(out_dir, f"sessions{r}.npz"))
+            mine = slice(r * per, (r + 1) * per)
+            levels = int(np.abs(got["outputs"].astype(np.int16)
+                                - one["outputs"][:, mine].astype(np.int16)).max())
+            err = rel_rms(torch.from_numpy(got["x_t_buffer"]),
+                          torch.from_numpy(one["x_t_buffer"][mine]))
+            if got["outputs"].shape != (TP_SESSION_ROUNDS, per, 512, 512, 3) or \
+                    levels > MULTI_UINT8_TOL or not err <= MULTI_RMS_TOL:
+                raise AssertionError(f"dp sessions, rank {r}: outputs {got['outputs'].shape} "
+                                     f"{levels} levels off, noised latents {err:.3e}")
+            sessions.append({"max_levels_off": levels, "x_t_rel_rms": err})
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"ranks": results, "sessions": sessions,
+            "seconds": {"kernels": t_kernels, "ranks": t_ranks, "sessions_one_process": t_one,
+                        "phase": time.perf_counter() - t_phase}}
+
+
+def report_tp_phase(tp, smi) -> None:
+    for r, res in enumerate(tp["ranks"]):
+        st, tr = res["stream"], res["train"]
+        c = st["caches"]
+        print(f"rank {r} stream (UNetConfig(), 512x512, 2 steps, bf16, int8 cache, eager: a "
+              f"step with gloo collectives cannot be captured in a CUDA graph): relative RMS "
+              f"a frame {st['rel_rms']}; largest error over largest value "
+              f"{st['max_rel_err']}; cache slabs: {c['codes_differ_share']:.3e} of the codes "
+              f"differ (at most by {c['max_code_diff']}), scales within "
+              f"{c['scales_max_rel_err']:.2e}, dequantised relative RMS "
+              f"{c['dequantised_rel_rms']:.3e}; {st['param_bytes_on_tp']:.4f} of the parameter "
+              f"bytes on tp; launches a step {st['launches'][0]}")
+        if "control" in st:
+            print(f"control, unsharded, 1 % of the warmup latents moved by 2^-7: relative RMS "
+                  f"a frame {st['control']['rel_rms']}, caches {st['control']['caches']}")
+        print(f"rank {r} stream frame ms, tp 2 (two ranks on one card, eager): "
+              f"{st['frame_ms']}; unsharded eager {st['unsharded_frame_ms']} ({smi})")
+        print(f"rank {r} train (tp 2, 256x256, batch 2, clip 4, fp32, TF32 off): loss "
+              f"{tr['loss']} against {tr['loss_twin']}; worst motion gradient off by "
+              f"{tr['grad_err']} of its max; {tr['replicated_params']} replicated motion "
+              f"parameters bit-equal across the tp ranks after each step")
+        print(f"rank {r} train step ms {tr['step_ms']} (one process {tr['twin_step_ms']}; both "
+              f"ranks share one card: not a speed figure); the sharded state "
+              f"{tr['sharded_bytes'] / 2**30:.2f} GiB, a step's peak net of what is resident "
+              f"{[round(x / 2**30, 3) for x in tr['step_peak_bytes_net']]} GiB; the rank's "
+              f"peak {res['peak_memory_bytes'] / 2**30:.2f} GiB ({smi})")
+        print(f"rank {r} seconds {json.dumps(res['seconds'])}")
+    print(f"dp sessions ({TP_SESSIONS} over 2 ranks, {TP_SESSION_ROUNDS} rounds) against one "
+          f"MultiStream of {TP_SESSIONS}: {json.dumps(tp['sessions'])}")
+    print(f"phase 18: {json.dumps(tp['seconds'])}")
 
 
 def main() -> int:
@@ -3290,7 +3717,7 @@ def main() -> int:
 
     phase("training at full width: Trainer at the JAX trainer's defaults (256x256, batch 2, "
           "clip 4, fp32), the training kernels at every shape it gives them")
-    trained, train_entries = training_phase(torch, _build, smi, gen, dev)
+    trained, train_entries, train_shapes = training_phase(torch, _build, smi, gen, dev)
     print(json.dumps({k: v for k, v in trained.items() if k != "profile"}))
     print(f"training profile: {json.dumps(trained['profile'])}")
     for k in train_entries:
@@ -3303,6 +3730,12 @@ def main() -> int:
           f"{trained['profile'].get('attention_share_of_device_ms')} of it, peak memory "
           f"{trained['peak_memory_bytes'] / 2**30:.2f} GiB, TF32 {json.dumps(trained['tf32'])} "
           f"({smi})")
+
+    phase("tensor and data parallelism (phase 18): the kernels at each tp rank's shapes; two "
+          "gloo ranks on this card: the full-width stream step and train step at tp = 2 "
+          "against one process, sessions over dp = 2, dryrun_multichip")
+    tp = tp_phase(torch, gen, dev, kernels + train_entries, train_shapes, smi)
+    report_tp_phase(tp, smi)
 
     # each kernel's launches come from the phase that runs it: the wrappers'
     # counts over that phase's stream (its capture: one step), and the
@@ -3340,4 +3773,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--start"]:  # a process of phase 17 (start_phase)
         sys.exit(start_run(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 18 (tp_phase)
+        sys.exit(tp_rank_run(*sys.argv[2:]))
     sys.exit(main())

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
+from ..parallel.tp import row_linear, tp_copy
 from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward
 
 
@@ -31,7 +32,11 @@ class CrossAttention(nn.Module):
     """Multi-head attention with an optional cross-attention source; q/k/v
     carry no bias, the output projection does (diffusers ``Attention``). A
     self-attention takes ``kernels.flash_variant``; a cross-attention the
-    d-major kernel. ``cross_frame`` takes the keys of each clip's frame 0."""
+    d-major kernel. ``cross_frame`` takes the keys of each clip's frame 0.
+    A tp block (``parallel/tp.py``): sharded, it holds H/tp heads, its head
+    count read from its own projections."""
+
+    tp = None  # the tp group once parallel.tp.shard_params shards it
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, cross_frame: bool = False,
@@ -45,11 +50,16 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
+    def tp_divides(self, tp: int) -> bool:
+        return self.heads % tp == 0
+
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 video_length: Optional[int] = None) -> torch.Tensor:
-        ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
-        k = self.to_k(ctx)  # [B*F, S, inner]
+        hidden_states = tp_copy(hidden_states, self.tp)
+        ctx = (hidden_states if encoder_hidden_states is None
+               else tp_copy(encoder_hidden_states, self.tp))
+        k = self.to_k(ctx)  # [B*F, S, inner / tp]
         if self.cross_frame:
             if video_length is None:
                 raise ValueError("cross-frame attention needs video_length")
@@ -58,8 +68,8 @@ class CrossAttention(nn.Module):
                 k = k.reshape(bf // video_length, video_length, s, c)[:, :1]
                 k = k.expand(-1, video_length, -1, -1).reshape(bf, s, c)
 
-        def split_heads(x):
-            return x.reshape(*x.shape[:-1], self.heads, self.dim_head)
+        def split_heads(x):  # this rank's heads
+            return x.reshape(*x.shape[:-1], -1, self.dim_head)
 
         out = dot_product_attention(
             split_heads(self.to_q(hidden_states)),
@@ -67,7 +77,7 @@ class CrossAttention(nn.Module):
             split_heads(self.to_v(ctx)),
             flash_variant=self.flash_variant,
         )
-        return self.to_out[0](out.reshape(*out.shape[:-2], -1))
+        return row_linear(out.reshape(*out.shape[:-2], -1), self.to_out[0], self.tp)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..ops.norm import group_norm_act, layer_norm
+from ..parallel.tp import row_linear, tp_copy
 
 
 def timestep_embedding(
@@ -73,7 +74,9 @@ def sinusoidal_table(
 
 
 class GEGLU(nn.Module):
-    """``proj`` to twice the width, then hidden * GELU(gate) with exact GELU."""
+    """``proj`` to twice the width, then hidden * GELU(gate) with exact GELU.
+    Tensor-parallel, ``proj`` holds this rank's slab of both halves
+    (``parallel/tp.py``: GEGLU), so the chunks are its share of each."""
 
     def __init__(self, dim: int, inner: int):
         super().__init__()
@@ -86,27 +89,35 @@ class GEGLU(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU feed-forward (diffusers ``FeedForward``, activation_fn="geglu");
-    ``net.1`` is the dropout slot, empty at inference."""
+    ``net.1`` is the dropout slot, empty at inference. A tp block: ``net.0``
+    column-parallel, ``net.2`` row-parallel."""
+
+    tp = None  # the tp group once parallel.tp.shard_params shards it
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
+    def tp_divides(self, tp: int) -> bool:
+        return self.net[2].in_features % tp == 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        return row_linear(self.net[0](tp_copy(x, self.tp)), self.net[2], self.tp)
 
 
 class FusedGroupNorm(nn.Module):
     """GroupNorm over the trailing channel axis of ``[N, ..., C]`` with
     per-N fp32 statistics and an optional fused activation. ``site`` names
     the call site, as in the JAX package; ``kernels`` says whether the
-    GroupNorm kernel runs there."""
+    GroupNorm kernel runs there. Cut to a slab of whole groups (a sharded
+    resnet's ``norm2``), it normalises the groups its weight holds."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
                  act: str = "none", site: str = "", kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.num_groups, self.eps, self.act, self.site = num_groups, eps, act, site
+        self.channels = channels
         self.kernels = kernels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -115,7 +126,8 @@ class FusedGroupNorm(nn.Module):
         c = x.shape[-1]
         y = group_norm_act(
             x.reshape(x.shape[0], -1, c), self.weight, self.bias,
-            groups=self.num_groups, eps=self.eps, act=self.act, site=self.site,
+            groups=self.num_groups * self.weight.numel() // self.channels, eps=self.eps,
+            act=self.act, site=self.site,
             kernels=self.kernels,
         )
         return y.reshape(x.shape)

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention, stream_window_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
+from ..parallel.tp import row_linear, tp_copy
 from ..stream.state import KVCache
 from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, sinusoidal_table
 
@@ -110,15 +111,24 @@ def write_kv_warmup(cache: KVCache, k: torch.Tensor, v: torch.Tensor, step_idx: 
 
 
 class TemporalAttention(nn.Module):
-    """Temporal self-attention with clip / warmup / stream behaviour."""
+    """Temporal self-attention with clip / warmup / stream behaviour. A tp
+    block (``parallel/tp.py``): sharded, it holds H/tp heads, C/tp channels
+    of q, k, v and of its KV cache (the channel slab of its heads), and
+    reads its width from its own projections."""
+
+    tp = None  # the tp group once parallel.tp.shard_params shards it
 
     def __init__(self, dim: int, heads: int = 8, pe_max_len: int = 24, window_size: int = 16):
         super().__init__()
         self.heads, self.pe_max_len, self.window_size = heads, pe_max_len, window_size
+        self.dim_head = dim // heads
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+
+    def tp_divides(self, tp: int) -> bool:
+        return self.heads % tp == 0
 
     def forward(
         self,
@@ -131,13 +141,14 @@ class TemporalAttention(nn.Module):
         warmup_step_idx: Optional[int] = None,
     ) -> Tuple[torch.Tensor, KVCache]:
         b, hw, f, c = hidden_states.shape
-        heads, dh = self.heads, c // self.heads
-        q = self.to_q(hidden_states)
-        k = self.to_k(hidden_states)
-        v = self.to_v(hidden_states)
-        # pre-projected positional encodings (PE stays out of the cache)
+        x = tp_copy(hidden_states, self.tp)
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        cl, dh = q.shape[-1], self.dim_head  # this rank's width: C/tp of H/tp heads
+        heads = cl // dh
+        # pre-projected positional encodings (PE stays out of the cache);
+        # the column slabs give this rank's heads' share of them
         pe = sinusoidal_table(self.pe_max_len, c, q.device, q.dtype)[: self.window_size]
-        pe_q, pe_k, pe_v = self.to_q(pe), self.to_k(pe), self.to_v(pe)  # [window, C]
+        pe_q, pe_k, pe_v = self.to_q(pe), self.to_k(pe), self.to_v(pe)  # [window, C/tp]
 
         if mode in ("clip", "warmup"):
             new_cache = (write_kv_warmup(kv_cache, k[0], v[0], warmup_step_idx)
@@ -149,7 +160,7 @@ class TemporalAttention(nn.Module):
             out = dot_product_attention(
                 q.reshape(b, hw, f, heads, dh), k.reshape(b, hw, f, heads, dh),
                 v.reshape(b, hw, f, heads, dh),
-            ).reshape(b, hw, f, c)
+            ).reshape(b, hw, f, cl)
         elif mode == "stream":
             if f != 1:
                 raise ValueError("stream mode processes one frame per denoising step")
@@ -160,10 +171,10 @@ class TemporalAttention(nn.Module):
             out = stream_window_attention(
                 q[:, :, 0], new_cache, pe_q[q_pe_idx], pe_k[pe_idx], pe_v[pe_idx],
                 attn_bias, heads,
-            ).reshape(b, hw, 1, c)
+            ).reshape(b, hw, 1, cl)
         else:
             raise ValueError(f"unknown mode: {mode}")
-        return self.to_out[0](out), new_cache
+        return row_linear(out, self.to_out[0], self.tp), new_cache
 
 
 class TemporalTransformerBlock(nn.Module):

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
+from ..parallel.tp import tp_copy, tp_reduce
 from .layers import FusedGroupNorm
 
 
@@ -33,6 +34,21 @@ class InflatedConv(nn.Conv2d):
         out = conv_nhwc(x.reshape(b * f, h, w, c), self)
         return out.reshape(b, f, *out.shape[1:])
 
+    def partial_fp32(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without its bias, as an fp32 tensor: a row-parallel
+        partial. Low-precision operands are upcast and convolved with TF32
+        allowed: a bf16 value is exact in TF32, so the products are the bf16
+        conv's, with an fp32 output."""
+        b, f, h, w, c = x.shape
+        x = x.reshape(b * f, h, w, c).permute(0, 3, 1, 2)
+        if x.dtype == torch.float32:
+            out = F.conv2d(x, self.weight, None, self.stride, self.padding)
+        else:
+            with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                            allow_tf32=True):
+                out = F.conv2d(x.float(), self.weight.float(), None, self.stride, self.padding)
+        return out.permute(0, 2, 3, 1).reshape(b, f, *out.shape[2:], -1)
+
 
 class InflatedGroupNorm(FusedGroupNorm):
     """GroupNorm with per-frame statistics over ``[B, F, H, W, C]``."""
@@ -43,7 +59,14 @@ class InflatedGroupNorm(FusedGroupNorm):
 
 
 class ResnetBlock3D(nn.Module):
-    """norm1 -> silu -> conv1 -> (+ time proj) -> norm2 -> silu -> conv2 -> + skip."""
+    """norm1 -> silu -> conv1 -> (+ time proj) -> norm2 -> silu -> conv2 -> + skip.
+
+    A tp block (``parallel/tp.py``): sharded, ``conv1`` and ``time_emb_proj``
+    give this rank's output channels, ``norm2`` normalises their groups and
+    ``conv2`` takes them as its input slab; its partial sums meet in one
+    all-reduce, then its bias."""
+
+    tp = None  # the tp group once parallel.tp.shard_params shards it
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  groups: int = 32, eps: float = 1e-6, kernels: KernelChoices = DEFAULT_KERNELS):
@@ -59,12 +82,22 @@ class ResnetBlock3D(nn.Module):
             InflatedConv(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
+    def tp_divides(self, tp: int) -> bool:
+        return self.conv1.out_channels % tp == 0 and self.norm2.num_groups % tp == 0
+
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
+        h = self.conv1(tp_copy(self.norm1(x), self.tp))
         if temb is not None:
             # temb is per batch row: [B, C] -> broadcast over F, H, W
-            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = self.conv2(self.norm2(h))
+            h = h + self.time_emb_proj(F.silu(tp_copy(temb, self.tp)))[:, None, None, None, :]
+        if self.tp is None:
+            h = self.conv2(self.norm2(h))
+        else:
+            # the partials summed in fp32 and rounded once, then the bias:
+            # the unsharded conv rounds its accumulator, and torch adds a
+            # cuDNN conv's bias after it (rounding again)
+            h = tp_reduce(self.conv2.partial_fp32(self.norm2(h)), self.tp).to(h.dtype)
+            h = h + self.conv2.bias
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -83,13 +83,20 @@ class UNetConfig:
     def num_caches(self) -> int:
         return len(self.motion_module_layout()) * self.caches_per_module
 
+    def motion_tp(self, tp: int) -> int:
+        """The ranks a motion module's heads and KV caches split over at
+        ``tp``: ``tp`` where it divides the heads (``parallel/tp.py`` shards
+        the attention block), else 1."""
+        return tp if self.motion_num_attention_heads % tp == 0 else 1
+
     def cache_shapes(
-        self, latent_height: int, latent_width: int, num_steps: int
+        self, latent_height: int, latent_width: int, num_steps: int, tp: int = 1
     ) -> Tuple[Tuple[int, ...], ...]:
         """Shape of each KV cache, ``[steps, 2, window, C, HW]``, flat
-        traversal order. Per-level spatial dims follow the UNet's stride-2
-        convs (ceil-halving), not integer division by 2**level: they differ
-        once an intermediate dim is odd."""
+        traversal order; at ``tp`` ranks each rank's, ``C / motion_tp(tp)``
+        channels (its heads' slab). Per-level spatial dims follow the
+        UNet's stride-2 convs (ceil-halving), not integer division by
+        2**level: they differ once an intermediate dim is odd."""
         dims = {1: (latent_height, latent_width)}
         res = 1
         for _ in range(len(self.block_out_channels) - 1):
@@ -97,17 +104,21 @@ class UNetConfig:
             res *= 2
             dims[res] = (-(-h // 2), -(-w // 2))
         shapes = []
+        split = self.motion_tp(tp)
         for channels, res in self.motion_module_layout():
             h, w = dims[res]
-            shapes += [(num_steps, 2, self.window_size, channels, h * w)] * self.caches_per_module
+            shapes += ([(num_steps, 2, self.window_size, channels // split, h * w)]
+                       * self.caches_per_module)
         return tuple(shapes)
 
     def init_caches(self, latent_height: int, latent_width: int, num_steps: int,
-                    dtype=torch.bfloat16, device=None) -> Tuple[KVCache, ...]:
-        """Zeroed KV caches; ``dtype=torch.int8`` gives (int8 data, f32
-        per-(slot, channel) scales) pairs: half the memory and half the
-        stream-attention read bytes of bf16."""
-        shapes = self.cache_shapes(latent_height, latent_width, num_steps)
+                    dtype=torch.bfloat16, device=None, tp: int = 1) -> Tuple[KVCache, ...]:
+        """Zeroed KV caches (each rank's at ``tp``); ``dtype=torch.int8``
+        gives (int8 data, f32 per-(slot, channel) scales) pairs: half the
+        memory and half the stream-attention read bytes of bf16. The scales
+        are per channel, so a rank's slab quantises as the unsharded
+        cache's channels do."""
+        shapes = self.cache_shapes(latent_height, latent_width, num_steps, tp)
         if dtype == torch.int8:
             return tuple(
                 (torch.zeros(s, dtype=torch.int8, device=device),

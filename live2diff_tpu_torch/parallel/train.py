@@ -7,16 +7,19 @@ modules train; the SD-1.5 weights stay frozen.
 
 The JAX step is one jitted program over a (dp, tp) mesh. Here it is eager
 PyTorch: the forward, the backward (the attention's through the fp32 flash
-kernels on the card, ``ops/flash_train.py``) and ``torch.optim.AdamW``
-over the motion parameters, with ``DistributedDataParallel`` averaging the
-gradients when a process group is up (``parallel/mesh.py``). The frozen
-parameters get ``requires_grad_(False)``: no gradient is computed for them
-and AdamW never sees them, the same result as ``optax.set_to_zero``.
+kernels on the card, ``ops/flash_train.py``, at H/tp heads a rank) and
+``torch.optim.AdamW`` over this rank's motion parameters, with
+``DistributedDataParallel`` averaging the gradients over the dp group
+(``parallel/mesh.py``); a UNet cut by ``parallel/tp.shard_params`` meets
+its tp peers in the forward and backward. The frozen parameters get
+``requires_grad_(False)``: no gradient is computed for them and AdamW
+never sees them, the same result as ``optax.set_to_zero``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -24,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..schedule import make_betas
-from .mesh import DataParallelMesh, average, batch_shard, make_mesh, wrap_model
+from .mesh import Mesh, average, batch_shard, make_mesh, wrap_model
+from .tp import sync_replicated_grads
 
 
 @dataclasses.dataclass
@@ -73,26 +77,27 @@ def diffusion_loss(
     generator: Optional[torch.Generator] = None,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
-    mesh: Optional[DataParallelMesh] = None,
+    mesh: Optional[Mesh] = None,
     num_train_timesteps: int = 1000,
 ) -> torch.Tensor:
     """Epsilon-prediction MSE (fp32) of ``unet`` on this rank's clips.
 
     batch: ``latents`` [B, F, h, w, 4], ``text`` [B, L, D], optional
-    ``depth`` [B, F, h, w, 4]; B is this rank's share of the global batch.
-    ``alphas``: ``alphas_cumprod`` on the latents' device.
+    ``depth`` [B, F, h, w, 4]; B is this dp rank's share of the global
+    batch. ``alphas``: ``alphas_cumprod`` on the latents' device.
 
     The draws, from ``generator`` (on the latents' device), in this order:
-    ``t = randint(0, num_train_timesteps, (B * ranks,))``, then ``noise =
-    randn(B * ranks, F, h, w, 4)``, each over the global batch, of which
-    this rank keeps its rows, so the ranks together draw what one process
-    would. A ``t`` or ``noise`` passed in (this rank's rows) is not drawn:
+    ``t = randint(0, num_train_timesteps, (B * dp,))``, then ``noise =
+    randn(B * dp, F, h, w, 4)``, each over the global batch, of which this
+    dp rank keeps its rows, so the ranks together draw what one process
+    would; the tp ranks of a dp group, seeded alike, draw the same. A ``t``
+    or ``noise`` passed in (this rank's rows) is not drawn:
     the tests replay the JAX package's draws so. Then ``noisy = sqrt(a) x +
     sqrt(1 - a) noise`` with ``a = alphas[t]``, and the UNet runs in
     ``clip`` mode with empty caches."""
-    mesh = mesh or DataParallelMesh()
+    mesh = mesh or Mesh()
     latents = batch["latents"]
-    shape = (latents.shape[0] * mesh.world_size, *latents.shape[1:])
+    shape = (latents.shape[0] * mesh.dp, *latents.shape[1:])
     if t is None:
         t = batch_shard(mesh, torch.randint(0, num_train_timesteps, shape[:1],
                                             generator=generator, device=latents.device))
@@ -111,13 +116,17 @@ TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
 
 
 def make_train_step(unet: nn.Module, optimizer: torch.optim.Optimizer,
-                    mesh: Optional[DataParallelMesh] = None,
+                    mesh: Optional[Mesh] = None,
                     num_train_timesteps: int = 1000) -> TrainStep:
     """``step(state, batch, t=None, noise=None) -> (state, loss)``: the
-    forward, the backward and the AdamW update of ``state``'s UNet, under
-    ``DistributedDataParallel`` when the process group has several ranks.
-    ``batch`` holds this rank's clips; the loss returned is the mean over
-    the ranks (the global batch's), a 0-dim device tensor."""
+    forward, the backward and the AdamW update of ``state``'s UNet (cut by
+    ``shard_params`` where the mesh has tp ranks), under
+    ``DistributedDataParallel`` over the dp group where it has several
+    ranks. ``batch`` holds this dp rank's clips; the loss returned is the
+    mean over the dp ranks (the global batch's), a 0-dim device tensor.
+    The gradients of the parameters every tp rank holds whole are averaged
+    over the tp group before the update (``sync_replicated_grads``), so
+    the replicas stay bit-equal."""
     mesh = mesh or make_mesh()
     model = wrap_model(unet, mesh)
     alphas = alphas_cumprod(num_train_timesteps, next(unet.parameters()).device)
@@ -131,8 +140,40 @@ def make_train_step(unet: nn.Module, optimizer: torch.optim.Optimizer,
         loss = diffusion_loss(model, batch, alphas, state.generator, t, noise, mesh,
                               num_train_timesteps)
         loss.backward()
+        sync_replicated_grads(unet)
         optimizer.step()
         state.step += 1
         return state, average(mesh, loss.detach())
 
     return train_step
+
+
+def train_step_dryrun(mesh: Optional[Mesh] = None, latent: int = 8, frames: int = 4,
+                      device=None) -> float:
+    """One tiny training step over the mesh (``live2diff_tpu/parallel/
+    train.py:133-182``): the tiny UNet from seed 0 on every rank, cut over
+    tp, a batch of ``max(dp, 2)`` clips split over dp, one forward,
+    backward and AdamW update. Returns the loss (finite, or it raises). On
+    the card unless ``device`` says otherwise."""
+    from ..builder import resolve_device
+    from ..models.unet import UNet3DConditionModel, UNetConfig
+    from ..train import TINY_UNET, init_weights_
+    from .tp import shard_params
+
+    mesh = mesh or make_mesh()
+    device = resolve_device(device)
+    unet = init_weights_(UNet3DConditionModel(UNetConfig(**TINY_UNET)).to(device),
+                         torch.Generator(device=device).manual_seed(0))
+    shard_params(unet, mesh)
+    optimizer = make_optimizer(unet)
+    state = TrainState(0, unet, optimizer, torch.Generator(device=device).manual_seed(1))
+    b = max(mesh.dp, 2)
+    batch = {"latents": torch.full((b, frames, latent, latent, 4), 0.1, device=device),
+             "text": torch.zeros((b, 7, unet.config.cross_attention_dim), device=device),
+             "depth": torch.zeros((b, frames, latent, latent, 4), device=device)}
+    batch = {k: batch_shard(mesh, v) for k, v in batch.items()}
+    state, loss = make_train_step(unet, optimizer, mesh)(state, batch)
+    loss = float(loss)
+    if not math.isfinite(loss):
+        raise FloatingPointError(f"non-finite training loss: {loss}")
+    return loss

@@ -4,7 +4,7 @@ Port of ``live2diff_tpu/train.py``:
 
   ClipDataset [B,F,H,W,3] --AutoencoderKL encode (frozen)-->  latents
   caption     --CLIP (a checkpoint's), else a fixed draw-->   text embeds
-  parallel/train.py:make_train_step (DDP over ranks) --torch.save--> save/resume
+  parallel/train.py:make_train_step (tp over ranks, DDP over dp) --torch.save--> save/resume
 
 It runs on the card unless the caller asks for the CPU (``device="cpu"``,
 ``--device cpu``), in fp32: on the card the attention and its gradient go
@@ -26,7 +26,12 @@ checkpoint's folder or its ``tokenizer/``.
 
 For several ranks, start the process group first (one process a card,
 ``torch.distributed.init_process_group`` with its address, world size and
-rank); each rank then trains on its share of every batch.
+rank). The ranks form the JAX trainer's default mesh
+(``live2diff_tpu/train.py:99``, ``parallel/mesh.py:make_mesh``): as much
+tensor parallelism as divides the world up to 8 (each tp rank holds a slab
+of the UNet's attention, feed-forward and resnet weights,
+``parallel/tp.py``), the rest data parallelism (each dp rank trains on its
+share of every batch).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from .models.text_encoder import CLIPTextConfig, CLIPTextModelWithFinalNorm
 from .models.unet import UNet3DConditionModel, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
 from .parallel.mesh import batch_shard, make_mesh
+from .parallel.tp import shard_params
 from .parallel.train import TrainState, make_optimizer, make_train_step
 from .utils.tokenizer import CLIPTokenizer
 
@@ -144,8 +150,8 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = make_mesh()
-        if cfg.batch % self.mesh.world_size:
-            raise ValueError(f"--batch {cfg.batch} must split over {self.mesh.world_size} ranks")
+        if cfg.batch % self.mesh.dp:
+            raise ValueError(f"--batch {cfg.batch} must split over {self.mesh.dp} dp ranks")
         if cfg.tiny:
             ucfg = UNetConfig(**TINY_UNET, cond_mapping=cfg.use_depth)
             vcfg = VAEConfig(**TINY_VAE)
@@ -165,6 +171,7 @@ class Trainer:
             if enc is not None:
                 self.text_embeds = enc
         self.vae.eval().requires_grad_(False)
+        shard_params(self.unet, self.mesh)  # every rank drew the whole UNet alike
 
         optimizer = make_optimizer(self.unet, cfg.lr, cfg.weight_decay)
         self.state = TrainState(
@@ -227,14 +234,16 @@ class Trainer:
             print(f"[train] resumed from {latest} (step {self.state.step})")
 
     def save(self) -> Optional[str]:
-        """Checkpoint to ``<ckpt_dir>/step_<N>`` (rank 0 writes; every rank
-        holds the same state)."""
-        if not self.cfg.ckpt_dir or self.mesh.rank != 0:
+        """Checkpoint to ``<ckpt_dir>/step_<N>``: the tp ranks of dp rank 0
+        gather their slabs and global rank 0 writes one unsharded state (the
+        dp ranks hold the same one). Returns the path on rank 0."""
+        if not self.cfg.ckpt_dir or self.mesh.dp_rank != 0:
             return None
         from .parallel.checkpoint import save_train_state
 
         path = os.path.join(self.cfg.ckpt_dir, f"step_{self.state.step}")
-        return save_train_state(path, self.state)
+        path = save_train_state(path, self.state, write=self.mesh.rank == 0)
+        return path if self.mesh.rank == 0 else None
 
     # -- the loop ------------------------------------------------------------
 

@@ -190,6 +190,26 @@ def test_importing_the_training_modules_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_importing_the_parallel_modules_pulls_in_no_jax():
+    """Tensor parallelism and the multi-rank inference, imported alone,
+    leave JAX out; their entry points default to the card."""
+    code = (
+        "import sys, inspect\n"
+        "import live2diff_tpu_torch.parallel.tp as tp, live2diff_tpu_torch.parallel.infer as i\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
+        " 'orbax', 'live2diff_tpu')]\n"
+        "assert not bad, bad\n"
+        "for f in (i.stream_step_tp_dryrun, i.flagship_stream_tp_check, i.tp_stream_check,\n"
+        "          i.multi_session_dp_dryrun, i.dryrun_multichip):\n"
+        "    assert inspect.signature(f).parameters['device'].default is None, f\n"
+        "assert callable(tp.shard_params) and callable(i.cache_sharding)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_training_kernels_take_their_plain_versions_on_cpu_tensors(monkeypatch):
     from live2diff_tpu_torch.ops.flash_train import (
         flash_train_bwd, flash_train_bwd_plain, flash_train_fwd, flash_train_fwd_plain,

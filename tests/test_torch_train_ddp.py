@@ -31,7 +31,9 @@ import pytest
 import torch
 
 from live2diff_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
-from live2diff_tpu_torch.parallel.mesh import DataParallelMesh, batch_shard, make_mesh
+from live2diff_tpu_torch.parallel.mesh import (
+    Mesh, batch_shard, default_split, group_ranks, make_mesh,
+)
 from live2diff_tpu_torch.parallel.train import (
     TrainState, is_motion_param, make_optimizer, make_train_step,
 )
@@ -45,7 +47,7 @@ TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS_DIR)
 
 
-def _setup(mesh: DataParallelMesh):
+def _setup(mesh: Mesh):
     """The tiny UNet from seed 0 (every weight random, the zero-initialised
     ones too), its optimizer and state, and this rank's share of the batch
     and of step 1's t and noise."""
@@ -65,7 +67,7 @@ def _setup(mesh: DataParallelMesh):
     return state, make_train_step(unet, optimizer, mesh), local
 
 
-def _run(mesh: DataParallelMesh):
+def _run(mesh: Mesh):
     """Two steps; the loss, the motion parameters and their gradients after each."""
     state, step, local = _setup(mesh)
     batch = {"latents": local["latents"], "text": local["text"]}
@@ -88,8 +90,8 @@ def worker(rank: int, port: int, path: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=WORLD, rank=rank)
     try:
-        mesh = make_mesh()
-        assert mesh == DataParallelMesh(rank, WORLD)
+        mesh = make_mesh(dp=WORLD, tp=1)  # the default split would make world 2 tp = 2
+        assert mesh == Mesh(WORLD, 1, rank) and mesh.dp_rank == rank and mesh.tp_group is None
         torch.save(_run(mesh), path)
     finally:
         dist.destroy_process_group()
@@ -115,7 +117,7 @@ def test_two_gloo_ranks_equal_one_process_on_the_whole_batch(tmp_path):
     assert all(p.returncode == 0 for p in procs), logs
 
     torch.set_num_threads(1)
-    single = _run(DataParallelMesh())
+    single = _run(Mesh())
     ranked = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(WORLD)]
     for s, one in enumerate(single):
         n_clear = n_all = 0
@@ -137,7 +139,7 @@ def test_two_gloo_ranks_equal_one_process_on_the_whole_batch(tmp_path):
             n_all += clear.numel()
         assert n_clear > 0.75 * n_all, (s, n_clear, n_all)  # most elements are held to TOL
     # the step moved the motion parameters
-    state, _, _ = _setup(DataParallelMesh())
+    state, _, _ = _setup(Mesh())
     moved = [(single[-1]["params"][n] - p.detach()).abs().max().item()
              for n, p in state.unet.named_parameters() if is_motion_param(n)]
     assert min(moved) > 0
@@ -145,10 +147,21 @@ def test_two_gloo_ranks_equal_one_process_on_the_whole_batch(tmp_path):
 
 def test_batch_shard_and_mesh():
     x = torch.arange(12).reshape(6, 2)
-    assert torch.equal(batch_shard(DataParallelMesh(1, 3), x), x[2:4])
-    assert torch.equal(batch_shard(DataParallelMesh(), x), x)
+    assert torch.equal(batch_shard(Mesh(3, 1, 1), x), x[2:4])
+    assert torch.equal(batch_shard(Mesh(3, 2, 3), x), x[2:4])  # dp rank 1's tp ranks share them
+    assert torch.equal(batch_shard(Mesh(), x), x)
     with pytest.raises(ValueError, match="split"):
-        batch_shard(DataParallelMesh(0, 4), x)
-    assert make_mesh() == DataParallelMesh(0, 1)  # no process group here
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        make_mesh(tp=2)
+        batch_shard(Mesh(4, 1, 0), x)
+    assert make_mesh() == Mesh()  # no process group here: one rank
+    # the JAX package's default split: as much tp as divides the ranks, up to 8
+    assert [default_split(n) for n in (1, 2, 3, 4, 6, 8, 12, 16)] == [
+        (1, 1), (1, 2), (3, 1), (1, 4), (3, 2), (1, 8), (3, 4), (2, 8)]
+    assert default_split(8, dp=4, tp=2) == (4, 2) and default_split(4, tp=1) == (4, 1)
+    with pytest.raises(ValueError, match="ranks"):
+        default_split(8, dp=4)  # tp defaults to 8 whatever dp says, as in JAX
+    with pytest.raises(ValueError, match="ranks"):
+        make_mesh(tp=2)  # two tp ranks over a world of one
+    # rank r sits at (r // tp, r % tp): a tp group is tp consecutive ranks
+    dp_groups, tp_groups = group_ranks(3, 2)
+    assert tp_groups == [[0, 1], [2, 3], [4, 5]] and dp_groups == [[0, 2, 4], [1, 3, 5]]
+    assert (Mesh(3, 2, 5).dp_rank, Mesh(3, 2, 5).tp_rank) == (2, 1)
