@@ -114,6 +114,15 @@ def dpt_torch_key(path: Tuple[str, ...]) -> str:
     raise KeyError(f"no DPT checkpoint name for flax path {path}")
 
 
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    """A C-contiguous copy of ``arr`` as a CPU tensor of its own dtype; a
+    bfloat16 array (JAX's numpy extension type) goes by its bits."""
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _convert(arr: np.ndarray, leaf: str) -> np.ndarray:
     if leaf == "kernel" and arr.ndim == 4:
         return np.transpose(arr, (3, 2, 0, 1))
@@ -126,11 +135,9 @@ def params_from_jax(
     params: Mapping, key: Callable[[Tuple[str, ...]], str] = torch_key
 ) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (leaves convertible by ``np.asarray``) -> a
-    state dict for the matching port module, fp32 on the CPU. ``key`` names
-    each parameter: ``torch_key`` for the UNet and TAESD, ``dpt_torch_key``
-    for the DPT."""
-    out = {}
-    for path, leaf in _flatten(params):
-        arr = _convert(np.asarray(leaf, dtype=np.float32), path[-1])
-        out[key(path)] = torch.from_numpy(np.array(arr, copy=True, order="C"))
-    return out
+    state dict for the matching port module on the CPU, each parameter in
+    its own dtype (fp32, or a ``param_dtype`` of bf16). ``key`` names each
+    parameter: ``torch_key`` for the UNet and TAESD, ``dpt_torch_key`` for
+    the DPT."""
+    return {key(path): _to_torch(_convert(np.asarray(leaf), path[-1]))
+            for path, leaf in _flatten(params)}

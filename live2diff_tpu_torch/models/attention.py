@@ -25,7 +25,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..parallel.tp import row_linear, tp_copy
-from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward
+from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, Linear, at_dtype
 
 
 class CrossAttention(nn.Module):
@@ -45,10 +45,10 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         self.heads, self.dim_head, self.cross_frame = heads, dim_head, cross_frame
         self.flash_variant = "dmajor" if cross_attention_dim else kernels.flash_variant
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
     def tp_divides(self, tp: int) -> bool:
         return self.heads % tp == 0
@@ -125,9 +125,11 @@ class Transformer3DModel(nn.Module):
         b, f, h, w, c = hidden_states.shape
         x = self.norm(hidden_states.reshape(b * f, h * w, c))
         # 1x1 convs as linear maps over the channel axis
-        x = F.linear(x, self.proj_in.weight[:, :, 0, 0], self.proj_in.bias)
+        x = F.linear(x, at_dtype(self.proj_in.weight[:, :, 0, 0], x.dtype),
+                     at_dtype(self.proj_in.bias, x.dtype))
         ctx = encoder_hidden_states.repeat_interleave(f, dim=0)  # text repeats per frame
         for block in self.transformer_blocks:
             x = block(x, ctx, video_length=f)
-        x = F.linear(x, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias)
+        x = F.linear(x, at_dtype(self.proj_out.weight[:, :, 0, 0], x.dtype),
+                     at_dtype(self.proj_out.bias, x.dtype))
         return x.reshape(b, f, h, w, c) + hidden_states

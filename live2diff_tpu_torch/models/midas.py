@@ -31,7 +31,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
-from .layers import FusedGroupNorm, FusedLayerNorm
+from .layers import FusedGroupNorm, FusedLayerNorm, Linear, at_dtype
 from .resnet import conv_nhwc
 
 
@@ -71,8 +71,9 @@ class StdConv(nn.Conv2d):
         w = self.weight.float()
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), keepdim=True, unbiased=False)
-        w = ((w - mean) / torch.sqrt(var + 1e-8)).to(self.weight.dtype)
-        out = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias, self.stride, self.padding)
+        w = ((w - mean) / torch.sqrt(var + 1e-8)).to(x.dtype)
+        out = F.conv2d(x.permute(0, 3, 1, 2), w, at_dtype(self.bias, x.dtype), self.stride,
+                       self.padding)
         return out.permute(0, 2, 3, 1)
 
 
@@ -123,8 +124,8 @@ class _SelfAttention(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(hidden, 3 * hidden)
-        self.proj = nn.Linear(hidden, hidden)
+        self.qkv = Linear(hidden, 3 * hidden)
+        self.proj = Linear(hidden, hidden)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         dh = h.shape[-1] // self.heads
@@ -135,8 +136,8 @@ class _SelfAttention(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(hidden, mlp_dim)
-        self.fc2 = nn.Linear(mlp_dim, hidden)
+        self.fc1 = Linear(hidden, mlp_dim)
+        self.fc2 = Linear(mlp_dim, hidden)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(h), approximate="none"))
@@ -241,7 +242,7 @@ class _ProjectReadout(nn.Module):
 
     def __init__(self, hidden: int):
         super().__init__()
-        self.project = nn.Sequential(nn.Linear(2 * hidden, hidden), nn.GELU())
+        self.project = nn.Sequential(Linear(2 * hidden, hidden), nn.GELU())
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         patch = t[:, 1:]
@@ -316,7 +317,8 @@ class DPTDepthModel(nn.Module):
 
         # --- ViT over the patch grid ---
         tokens = conv_nhwc(h, vit.patch_embed.proj).reshape(b, g * g, d)
-        tokens = torch.cat([vit.cls_token.expand(b, 1, d), tokens], dim=1) + vit.pos_embed
+        tokens = (torch.cat([at_dtype(vit.cls_token, tokens.dtype).expand(b, 1, d), tokens], dim=1)
+                  + at_dtype(vit.pos_embed, tokens.dtype))
         vit_taps = {}
         for i, block in enumerate(vit.blocks):
             tokens = block(tokens)

@@ -32,7 +32,8 @@ from ..ops.attention import dot_product_attention, stream_window_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..parallel.tp import row_linear, tp_copy
 from ..stream.state import KVCache
-from .layers import FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, sinusoidal_table
+from .layers import (FusedGroupNorm, FusedLayerNorm, GEGLUFeedForward, Linear,
+                     sinusoidal_table)
 
 
 # one 0-dim 127.0 per device, made at first use
@@ -122,10 +123,10 @@ class TemporalAttention(nn.Module):
         super().__init__()
         self.heads, self.pe_max_len, self.window_size = heads, pe_max_len, window_size
         self.dim_head = dim // heads
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(dim, dim, bias=False)
-        self.to_v = nn.Linear(dim, dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        self.to_q = Linear(dim, dim, bias=False)
+        self.to_k = Linear(dim, dim, bias=False)
+        self.to_v = Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([Linear(dim, dim)])
 
     def tp_divides(self, tp: int) -> bool:
         return self.heads % tp == 0
@@ -216,13 +217,13 @@ class TemporalTransformer3DModel(nn.Module):
         self.caches_per_block = num_attention_blocks
         self.norm = FusedGroupNorm(norm_num_groups, channels, 1e-6, site="motion_in",
                                    kernels=kernels)
-        self.proj_in = nn.Linear(channels, channels)
+        self.proj_in = Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             TemporalTransformerBlock(channels, heads, num_attention_blocks, pe_max_len,
                                      window_size, kernels)
             for _ in range(num_layers)
         ])
-        self.proj_out = nn.Linear(channels, channels)
+        self.proj_out = Linear(channels, channels)
 
     def forward(self, hidden_states: torch.Tensor, kv_caches: Sequence[KVCache], mode: str,
                 *args) -> Tuple[torch.Tensor, list]:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import conv3x3
+from .layers import Linear, at_dtype
 from .resnet import conv_nhwc
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
@@ -94,10 +95,10 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
         self.group_norm = VAEGroupNorm(groups, channels)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -259,7 +260,8 @@ class FusedConv3x3(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5**0.5)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor = None) -> torch.Tensor:
-        return conv3x3(x, self.weight, self.bias, skip, self.relu, self.stride)
+        return conv3x3(x, at_dtype(self.weight, x.dtype), at_dtype(self.bias, x.dtype), skip,
+                       self.relu, self.stride)
 
 
 class FusedConv3x3S2(FusedConv3x3):

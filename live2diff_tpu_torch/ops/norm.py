@@ -248,12 +248,16 @@ def group_norm_act(
     """GroupNorm over [B, T, C] with per-B fp32 statistics, optional
     SiLU/ReLU: the kernel at the GroupNorm kernel sites where the JAX
     package's conditions hold and C fits the kernel (C <= GN_MAX_CHANNELS),
-    the plain version elsewhere. Decided from the shape before any launch."""
+    the plain version elsewhere. Decided from the shape before any launch.
+    gamma and beta may be stored in another dtype than x (``param_dtype``):
+    the plain version applies them in fp32 as they are, the kernel, which
+    takes them in x's dtype, after a cast."""
     _, t, c = x.shape
     if (
         kernels.gn_kernel_at(site) and t * c <= GN_MAX_ELEMS and c % groups == 0
         and c % 8 == 0 and c <= GN_MAX_CHANNELS
     ):
+        gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
         return group_norm(*map(_aligned, (x, gamma, beta)), groups, eps, act)
     return group_norm_plain(x, gamma, beta, groups, eps, act)
 
@@ -322,8 +326,9 @@ def layer_norm(
     """LayerNorm over the trailing axis, fp32 centred statistics, per row:
     the kernel at the LayerNorm kernel sites where the JAX package's shape
     conditions hold (C % 8 == 0, at least 2^14 elements), the plain version
-    elsewhere."""
+    elsewhere. gamma and beta in another dtype than x: as ``group_norm_act``."""
     c = x.shape[-1]
     if not (kernels.ln_kernel_at(site) and c % 8 == 0 and x.numel() >= LN_MIN_ELEMS):
         return layer_norm_plain(x, gamma, beta, eps)
+    gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
     return layer_norm_rows(x.reshape(-1, c).contiguous(), gamma, beta, eps).reshape(x.shape)

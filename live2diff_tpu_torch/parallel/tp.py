@@ -140,16 +140,18 @@ def row_linear(x: torch.Tensor, layer: nn.Linear, tp: Optional[TPGroup]) -> torc
     each partial and their sum as well would add roundings a block."""
     if tp is None:
         return layer(x)
+    # the parameters in x's dtype, as the unsharded layer takes them
+    weight = layer.weight.to(x.dtype)
     if x.dtype == torch.float32:
-        partial = F.linear(x, layer.weight)
+        partial = F.linear(x, weight)
     elif x.is_cuda:
-        partial = torch.mm(x.reshape(-1, x.shape[-1]), layer.weight.t(),
+        partial = torch.mm(x.reshape(-1, x.shape[-1]), weight.t(),
                            out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
     else:
-        partial = F.linear(x.float(), layer.weight.float())
+        partial = F.linear(x.float(), weight.float())
     out = tp_reduce(partial, tp)
     if layer.bias is not None:
-        out = out + layer.bias.float()
+        out = out + layer.bias.to(x.dtype).float()
     return out.to(x.dtype)
 
 

@@ -79,7 +79,9 @@ class _PinnedRing:
 
 
 class PipelinedStream:
-    """Throughput-oriented wrapper over ``StreamDiffusionDepth``.
+    """Throughput-oriented wrapper over ``StreamDiffusionDepth``, or over a
+    ``MultiStream``, whose items are ``[S, H, W, 3]`` rounds (the upload
+    path takes an item of any shape).
 
     Usage::
 

@@ -134,6 +134,16 @@ class StepGraphs:
         self.graphs.append(captured)
         return captured
 
+    def release_all(self) -> None:
+        """Release every graph now, and with them their pool (a pipeline
+        about to be dropped). Syncs the device first."""
+        if self.graphs:
+            torch.cuda.synchronize()
+        for g in self.graphs:
+            g.graph.reset()
+        self.graphs = []
+        self._pool = None
+
     def release_dropped(self) -> None:
         """Release the graphs of states the caller has dropped. Syncs the
         device first, since a released graph may still be replaying."""

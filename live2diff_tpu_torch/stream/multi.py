@@ -258,6 +258,16 @@ class MultiStream:
         self._graphs[masked, frame_dtype] = g = _SessionGraph(graph, frame, out, seconds)
         return g
 
+    def release_graphs(self) -> None:
+        """Release both captured steps and their pool now (a caller about to
+        drop this ``MultiStream``); a later round captures again."""
+        if self._graphs:
+            torch.cuda.synchronize(self.device)
+        for g in self._graphs.values():
+            g.graph.reset()
+        self._graphs.clear()
+        self._pool = None
+
     @property
     def capture_s(self) -> Dict[str, float]:
         """Wall seconds of each captured graph's capture."""

@@ -366,6 +366,13 @@ class StreamDiffusionDepth:
         frames = torch.as_tensor(warmup_frames, device=self.device)
         return self._warmup_denoise(state, frames, self._prompt_embeds, noise)
 
+    def release_graphs(self) -> None:
+        """Release every captured step now, not at the next ``prepare()``:
+        for a caller about to drop this pipeline. A later call captures
+        again."""
+        if self.device.type == "cuda":
+            self._graphs.release_all()
+
     def warm_frame_step(self, frame_dtype=torch.float32) -> float:
         """Run one dummy frame step eagerly on a throwaway state; returns wall
         seconds. The first step pays for the kernels' builds and loads, their

@@ -17,12 +17,16 @@ CPU ops, not a device) and exposes its work as a function that
   ``aggregate``).
 * ``aot_probe``: the start-up split of a cold and a warm start from a
   primed engine directory (``prime``, ``load``).
+* ``kernel_check``: every CUDA kernel against its plain version on the
+  card, at the JAX file's shapes and tolerances (``run_all``); the port
+  bench's ``kernel_selftest`` row.
 
 The JAX tools without a counterpart here:
 
 * ``dump_hlo.py`` and ``compile_probe.py`` read XLA programs; the port has
   none.
-* ``op_trace.py`` is ``scripts/kernel_ab.py --device``, ``kernel_check.py``
-  is ``chip_smoke.py``'s phase 2 and ``microbench.py`` is
-  ``scripts/kernel_ab.py``.
+* ``op_trace.py`` is ``scripts/kernel_ab.py --device`` and
+  ``microbench.py`` is ``scripts/kernel_ab.py``; ``chip_smoke.py``'s
+  phase 2 checks every kernel at every shape the stream steps give it,
+  beyond ``kernel_check``'s.
 """

@@ -156,3 +156,30 @@ def test_pipelined_client_matches_sync(tiny, uint8):
     for a, b in zip(sync, piped):
         assert torch.equal(a, b)
     assert ps.state.frame_idx == state.frame_idx == len(frames)
+
+
+@pytest.mark.parametrize("upload_batch", [1, 2])
+def test_pipelined_client_drives_a_multistream(tiny, upload_batch):
+    """PipelinedStream over a MultiStream of 2 sessions takes ``[S, H, W,
+    3]`` uint8 rounds (one or two a copy) and gives the direct rounds'
+    outputs, in order, bit for bit, with the stacked state advanced."""
+    from live2diff_tpu_torch.stream.multi import MultiStream
+
+    s = 2
+    rs = np.random.RandomState(11)
+    prompts = torch.from_numpy(rs.randn(s, 7, 12).astype(np.float32))
+    warm = torch.from_numpy(rs.rand(s, 8, H, W, 3).astype(np.float32) * 2 - 1)
+    rounds = [(rs.rand(s, H, W, 3) * 255).astype(np.uint8) for _ in range(5)]
+    multi = MultiStream(tiny, s, prompt_len=7)
+    states, _ = multi.prepare(warm, prompts, seeds=[3, 4])
+    direct = []
+    for r in rounds:
+        states, out = multi(states, r)
+        direct.append(out)
+    states, _ = multi.prepare(warm, prompts, seeds=[3, 4])
+    ps = PipelinedStream(multi, states, max_in_flight=2, upload_batch=upload_batch)
+    piped = list(ps.map(iter(rounds)))
+    assert len(piped) == len(direct)
+    for a, b in zip(direct, piped):
+        assert a.shape == (s, H, W, 3) and torch.equal(a, b)
+    assert ps.state.frame_idx == (len(rounds),) * s

@@ -68,6 +68,12 @@ def test_importing_the_port_pulls_in_no_optional_host_package():
     assert not offenders, offenders
 
 
+def test_the_scan_covers_the_bench_and_kernel_check():
+    scanned = {os.path.relpath(path, REPO) for path in _port_sources()}
+    assert {"live2diff_tpu_torch/bench.py", "live2diff_tpu_torch/tools/kernel_check.py",
+            "chip_smoke.py"} <= scanned
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     for path in _port_sources():
