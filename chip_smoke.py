@@ -237,6 +237,21 @@ Phases, each printed as it ends; any failure exits non-zero:
    pipeline with one UNet GroupNorm bias dropped, 20 frames again, whose
    latents must cross their limit.
 
+20. full width, card against CPU (after phase 19): bench.py's
+   configuration (int8 cache, TAESD, the DPT-hybrid, uint8 frames) with
+   every weight refilled by ``fan_in_init_`` (kernels N(0, 1/fan_in), norm
+   scales N(1, 0.1^2), biases N(0, 0.05^2)), in bf16 with the kernels on the
+   card and in fp32 with the plain versions on the CPU: ``prepare`` and 12
+   frames at 64x64 (each output and each step's latents), then the UNet
+   alone at 512x512, a warmup call over 8 frames and 2 stream calls (each
+   output, the caches), all within ``FULL_RMS_TOL`` relative RMS; every
+   ResnetBlock3D and Transformer3DModel of the last call within
+   ``FULL_BLOCK_TOL`` of the CPU's block on the card's input; #1, #3, #6,
+   #7 and #9 launched. Prints bf16's own sensitivity (1 % of the warmup
+   latents nudged by 2^-7) and two controls: ``FULL_CONTROL`` set to 0,
+   whose block must read past the block limit, and ``FULL_SHOWN_CONTROL``,
+   shown.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
 directory that does not hold the port, it exits non-zero and prints no
@@ -3671,6 +3686,258 @@ def param_dtype_verdict(pd: dict) -> None:
         raise AssertionError(f"the default path: {twin_kernels} kernels a step")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: full width, card (bf16, kernels) against CPU (fp32, plain)
+# ---------------------------------------------------------------------------
+
+FULL_SIZE = 64  # the stream's frames: an 8x8 latent
+FULL_FRAMES = 12
+FULL_LATENT = 64  # the UNet's own calls: 512x512
+FULL_SEED = 7  # the fan-in refill's
+# the controls, each set to 0 on the card in turn. The GroupNorm scale is
+# held: its block must read past FULL_BLOCK_TOL (the UNet's outputs move
+# less than bf16's own rounding moves them, so no end-to-end limit sees
+# it). The bias beside it is shown, not held: the GroupNorm after the next
+# conv takes out most of a constant shift, and what is left is under bf16's
+# rounding in its own block too (PERF.md §6, the full-width findings)
+FULL_CONTROL = "mid_block.resnets.0.norm1.weight"
+FULL_SHOWN_CONTROL = "mid_block.resnets.0.norm1.bias"
+# relative RMS of the card's outputs, latents and caches against the CPU's:
+# bf16 against fp32 through the whole model, where a sub-ulp nudge of the
+# warmup latents moves the bf16 step about 1.7e-2 with fan-in weights
+# (PERF.md, the tp findings), and a wrong kernel moves it by order 1
+FULL_RMS_TOL = 0.1
+# relative RMS of each UNet block on the card (ResnetBlock3D,
+# Transformer3DModel, at the last 512x512 stream call) against the same
+# block on the CPU fed the card's input: bf16 rounding inside one block,
+# not carried through the chain
+FULL_BLOCK_TOL = 2e-2
+FULL_KERNELS = ("stream_attention_int8", "flash_attention", "conv3x3", "conv3x3_s2",
+                "layer_norm")
+
+
+class BlockRecorder:
+    """Forward hooks on every ResnetBlock3D and Transformer3DModel of a
+    UNet that, while armed, keep each call's arguments and output (on the
+    host, in fp32): ``calls`` is [(name, args, kwargs, output)]."""
+
+    def __init__(self, torch, unet):
+        from live2diff_tpu_torch.models.attention import Transformer3DModel
+        from live2diff_tpu_torch.models.resnet import ResnetBlock3D
+
+        self.calls, self.armed = [], False
+
+        def host(x):
+            return x.detach().float().cpu() if isinstance(x, torch.Tensor) else x
+
+        def hook(name):
+            def keep(mod, args, kwargs, out):
+                if self.armed:
+                    self.calls.append((name, [host(a) for a in args],
+                                       {k: host(v) for k, v in kwargs.items()}, host(out)))
+            return keep
+
+        self.handles = [m.register_forward_hook(hook(n), with_kwargs=True)
+                        for n, m in unet.named_modules()
+                        if isinstance(m, (ResnetBlock3D, Transformer3DModel))]
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def block_readings(torch, calls, cpu_unet, only=None) -> dict:
+    """Each recorded card block's output against the CPU UNet's block of the
+    same name on the card's input: relative RMS by block name."""
+    modules = dict(cpu_unet.named_modules())
+    with torch.no_grad():
+        return {name: rel_rms(card_out, modules[name](*args, **kwargs))
+                for name, args, kwargs, card_out in calls if only in (None, name)}
+
+
+def fullwidth_phase(torch, _build, device="cuda", size=FULL_SIZE, latent=FULL_LATENT,
+                    frames=FULL_FRAMES, **build_kw) -> dict:
+    """Phase 20. bench.py's configuration (int8 cache, TAESD, the full
+    DPT-hybrid, uint8 frames) at ``size`` x ``size`` frames, its weights
+    refilled by ``fan_in_init_`` from FULL_SEED, built twice: in bf16 on
+    ``device`` (the kernels) and in fp32 on the CPU (the plain versions),
+    the same weights. (a) ``prepare`` on 8 frames and ``frames`` frames on
+    both with the same noise: each output and each step's latents; (b) the
+    UNet alone at a ``latent`` x ``latent`` latent: the warmup call over 8
+    frames and 2 stream calls, each output and the caches after the last;
+    (c) every ResnetBlock3D and Transformer3DModel of the last stream call
+    against the CPU's block on the card's input. The wrappers' launches
+    count over (a)-(c). Then, on the card only: bf16's own sensitivity, (b)
+    with 1 % of the warmup latents nudged by 2^-7 against (b); and the
+    controls, (b) with FULL_CONTROL and then FULL_SHOWN_CONTROL set to 0,
+    against the CPU, and their block against the CPU's. ``build_kw`` goes
+    to both builds (a narrow UNet, no depth, to try the phase on the CPU)."""
+    from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.stream.state_machine import (
+        init_window_state, mask_to_bias, update_window_state,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    kw = dict(kv_cache_dtype="int8", output_uint8=True, seed=0, **build_kw)
+    ref = build_pipeline(BENCH_CONFIG, size, size, dtype=torch.float32, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(FULL_SEED)
+    models = [m for m in (ref.unet, ref.vae, ref.depth_model) if m is not None]
+    for m in models:
+        fan_in_init_(m, gen)
+    card = build_pipeline(BENCH_CONFIG, size, size, dtype=torch.bfloat16, device=dev, **kw)
+    for a, b in zip((card.unet, card.vae, card.depth_model), models):
+        a.load_state_dict(b.state_dict())
+    seconds = {"build": time.perf_counter() - t_phase}
+
+    g = torch.Generator().manual_seed(1)
+    cfg = ref.unet.config
+    warm = torch.rand(8, size, size, 3, generator=g) * 2 - 1
+    prompt = torch.randn(1, 77, cfg.cross_attention_dim, generator=g)
+    video = [(torch.rand(size, size, 3, generator=g) * 255).to(torch.uint8)
+             for _ in range(frames)]
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=g)
+    xw, dw = (torch.randn(1, 8, latent, latent, 4, generator=g) for _ in range(2))
+    calls = [tuple(torch.randn(2, 1, latent, latent, 4, generator=g) for _ in range(2))
+             for _ in range(2)]
+    pick = torch.rand(xw.shape, generator=g) < TP_NUDGE_SHARE
+    xw_nudged = torch.where(pick, xw * (1 + TP_NUDGE), xw)
+
+    def noise(seed):
+        gn = torch.Generator().manual_seed(seed)
+        return lambda shape: torch.randn(shape, generator=gn)
+
+    def stream_run(stream):
+        state, out = stream.prepare(warm, prompt, noise=noise(10))
+        outs, latents = [out.cpu().clone()], []
+        for i, frame in enumerate(video):
+            state, out = stream(state, frame, noise=noise(100 + i))
+            outs.append(out.cpu().clone())
+            latents.append(state.x_t_buffer.float().cpu().clone())
+        return outs, latents
+
+    def unet_run(unet, on, dtype, x0, recorder=None):
+        caches = cfg.init_caches(latent, latent, 2, torch.int8, on)
+        c = lambda t: t.to(on, dtype)  # noqa: E731
+        outs = []
+        with torch.no_grad():
+            out, caches = unet(c(x0), torch.tensor([261], device=on), c(ctx[:1]), c(dw), caches,
+                               "warmup", None, None, None, 0)
+            outs.append(out.float().cpu())
+            window = init_window_state(2, cfg.window_size, cfg.sink_size, device=on)
+            for i, (xs, ds) in enumerate(calls):
+                if recorder is not None:
+                    recorder.armed = i == len(calls) - 1
+                out, caches = unet(c(xs), torch.tensor([261, 61], device=on), c(ctx), c(ds),
+                                   caches, "stream", mask_to_bias(window[0]), window[1],
+                                   window[2])
+                update_window_state(*window, cfg.sink_size, out=window)
+                outs.append(out.float().cpu())
+        if recorder is not None:
+            recorder.armed = False
+        return outs, [(d.double() * s.double()[..., None]).float().cpu() for d, s in caches]
+
+    t0 = time.perf_counter()
+    ref_outs, ref_latents = stream_run(ref.stream)
+    ref_unet_outs, ref_caches = unet_run(ref.unet, torch.device("cpu"), torch.float32, xw)
+    seconds["cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    outs, latents = stream_run(card.stream)
+    recorder = BlockRecorder(torch, card.unet)
+    unet_outs, caches = unet_run(card.unet, dev, torch.bfloat16, xw, recorder)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    sound_calls, recorder.calls = recorder.calls, []
+    nudged_outs, _ = unet_run(card.unet, dev, torch.bfloat16, xw_nudged)
+    params = dict(card.unet.named_parameters())
+    control_runs = {}
+    for name in (FULL_CONTROL, FULL_SHOWN_CONTROL):
+        kept = params[name].detach().clone()
+        with torch.no_grad():
+            params[name].zero_()
+        control_runs[name] = (unet_run(card.unet, dev, torch.bfloat16, xw, recorder)[0],
+                              recorder.calls)
+        recorder.calls = []
+        with torch.no_grad():
+            params[name].copy_(kept)
+    recorder.remove()
+    seconds["card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = block_readings(torch, sound_calls, ref.unet)
+    controls = {}
+    for name, (control_outs, control_calls) in control_runs.items():
+        block = name.rsplit(".", 2)[0]  # mid_block.resnets.0
+        controls[name] = dict(
+            unet_rel_rms=[rel_rms(a, b) for a, b in zip(control_outs, ref_unet_outs)],
+            block=block, sound_block=blocks[block],
+            block_rel_rms=block_readings(torch, control_calls, ref.unet, only=block)[block])
+    seconds["cpu blocks"] = time.perf_counter() - t0
+    for out in outs[1:]:  # outs[0]: the 8 warmup frames
+        if tuple(out.shape) != (size, size, 3) or out.dtype != torch.uint8:
+            raise AssertionError(f"full width: output {tuple(out.shape)} {out.dtype}")
+    result = dict(
+        frames_rel_rms=[rel_rms(a, b) for a, b in zip(outs, ref_outs)],
+        latents_rel_rms=[rel_rms(a, b) for a, b in zip(latents, ref_latents)],
+        unet_rel_rms=[rel_rms(a, b) for a, b in zip(unet_outs, ref_unet_outs)],
+        caches_rel_rms=[rel_rms(a, b) for a, b in zip(caches, ref_caches)],
+        blocks_rel_rms=blocks, controls=controls,
+        nudge_rel_rms=[rel_rms(a, b) for a, b in zip(nudged_outs, unet_outs)],
+        launches=launches, output_std=float(torch.stack(ref_outs[1:]).float().std()))
+    del ref, card, sound_calls, recorder, control_runs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    seconds["phase"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    return result
+
+
+def fullwidth_verdict(r: dict) -> None:
+    """Raises unless phase 20's result meets its limits: every output,
+    latent, UNet output and cache within FULL_RMS_TOL of the CPU's, every
+    block within FULL_BLOCK_TOL, the held control's block past it, and the
+    main path's kernels launched."""
+    for key in ("frames_rel_rms", "latents_rel_rms", "unet_rel_rms", "caches_rel_rms"):
+        errs = r[key]
+        if not all(math.isfinite(e) for e in errs) or max(errs) > FULL_RMS_TOL:
+            raise AssertionError(f"full width, card against CPU: {key} {errs}")
+    name, worst = max(r["blocks_rel_rms"].items(), key=lambda kv: kv[1])
+    if not worst <= FULL_BLOCK_TOL:
+        raise AssertionError(f"full width: block {name} reads {worst}, over {FULL_BLOCK_TOL}")
+    held = r["controls"][FULL_CONTROL]
+    if not held["block_rel_rms"] > FULL_BLOCK_TOL:
+        raise AssertionError(f"the block limit misses a dropped {FULL_CONTROL}: {held}")
+    missing = [k for k in FULL_KERNELS if not r["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"full width: {missing} not launched ({r['launches']})")
+
+
+def report_fullwidth(r: dict, smi: str) -> None:
+    def worst(key):
+        return f"max {max(r[key]):.5f} over {len(r[key])}"
+
+    blocks = r["blocks_rel_rms"]
+    name = max(blocks, key=blocks.get)
+    print(f"full width, card (bf16, kernels) against CPU (fp32, plain), relative RMS: frames "
+          f"{worst('frames_rel_rms')} (warmup first), latents {worst('latents_rel_rms')}, "
+          f"UNet outputs {json.dumps([round(e, 6) for e in r['unet_rel_rms']])} (warmup, 2 "
+          f"stream calls at 512x512), caches {worst('caches_rel_rms')}; limit {FULL_RMS_TOL}")
+    print(f"full width, each of {len(blocks)} UNet blocks against the CPU's on its input: "
+          f"worst {name} {blocks[name]:.5f}, limit {FULL_BLOCK_TOL}: "
+          f"{json.dumps({k: round(v, 6) for k, v in blocks.items()})}")
+    print(f"bf16's own sensitivity, 1 % of the warmup latents nudged by 2^-7: UNet outputs "
+          f"{json.dumps([round(e, 6) for e in r['nudge_rel_rms']])}")
+    for cname, c in r["controls"].items():
+        held = "held" if cname == FULL_CONTROL else "shown"
+        print(f"control ({held}), {cname} = 0: UNet outputs against the CPU "
+              f"{json.dumps([round(e, 6) for e in c['unet_rel_rms']])}; its block {c['block']} "
+              f"{c['block_rel_rms']:.5f}, sound {c['sound_block']:.5f}")
+    print(f"full width: launches {json.dumps(r['launches'])}; output std "
+          f"{r['output_std']:.2f} levels; seconds {json.dumps(r['seconds'])} ({smi})")
+
+
 def main() -> int:
     import torch
 
@@ -4002,6 +4269,14 @@ def main() -> int:
               f"{run['peak_bytes_net'] / 2**30:.2f} GiB net of the start ({smi})")
     param_dtype_verdict(pd)
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    del pd
+
+    phase("full width, card against CPU (phase 20): bench.py's configuration with fan-in "
+          "weights, 64x64 frames through the DPT-hybrid (prepare, 12 frames), then the UNet at "
+          "512x512 (warmup, 2 stream calls); bf16 with the kernels here, fp32 plain on the CPU")
+    full = fullwidth_phase(torch, _build)
+    report_fullwidth(full, smi)
+    fullwidth_verdict(full)
 
     # each kernel's launches come from the phase that runs it: the wrappers'
     # counts over that phase's stream (its capture: one step), and the

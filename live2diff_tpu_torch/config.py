@@ -90,3 +90,14 @@ def load_config(path: str) -> ConfigDict:
         cfg = _deep_merge(base_cfg, cfg)
 
     return ConfigDict.wrap(cfg)
+
+
+def dump_config(cfg: Mapping, path: str | None = None) -> str:
+    """Serialise a config back to YAML; optionally write it to ``path``."""
+    if isinstance(cfg, ConfigDict):
+        cfg = cfg.to_dict()
+    text = yaml.safe_dump(cfg, sort_keys=False)
+    if path is not None:
+        with open(path, "w") as f:
+            f.write(text)
+    return text

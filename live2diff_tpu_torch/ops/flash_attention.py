@@ -54,6 +54,11 @@ def pick_block(s: int, target: int, align: int = 128) -> int:
     return b
 
 
+# logits the plain version holds at once (the JAX package's dense budget,
+# live2diff_tpu/ops/attention.py:28); above it the queries go in blocks
+PLAIN_MAX_LOGITS = 1 << 24
+
+
 def flash_attention_plain(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, H, D]
@@ -63,7 +68,22 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """Dense attention: fp32 logits and softmax, probabilities cast to v's
     dtype, fp32 accumulation of the value product. Returns q's layout in
-    v's dtype."""
+    v's dtype. Past ``PLAIN_MAX_LOGITS`` logits it takes the queries in
+    blocks, each row's softmax over all of its keys at once: the 64x64
+    latent's warmup self-attention would otherwise hold 2^30 fp32 logits
+    (4 GiB) twice over."""
+    b, sq, h, _ = q.shape
+    rows = max(1, PLAIN_MAX_LOGITS // (b * h * k.shape[1]))
+    if rows >= sq:
+        return _dense_plain(q, k, v, scale, bias)
+    per_row = bias is not None and bias.dim() >= 2 and bias.shape[-2] == sq
+    return torch.cat([
+        _dense_plain(q[:, i:i + rows], k, v, scale,
+                     bias[..., i:i + rows, :] if per_row else bias)
+        for i in range(0, sq, rows)], dim=1)
+
+
+def _dense_plain(q, k, v, scale, bias):
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()

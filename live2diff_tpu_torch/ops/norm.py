@@ -78,10 +78,10 @@ def group_norm_plain(
     b, t, c = x.shape
     cg = c // groups
     xf = x.float()
-    mean_g = xf.reshape(b, t, groups, cg).mean(dim=(1, 3))  # [B, G]
+    mean_g = _group_mean(xf.reshape(b, t, groups, cg))  # [B, G]
     mean_c = mean_g.repeat_interleave(cg, dim=-1)  # [B, C]
     xc = xf - mean_c[:, None, :]
-    var = (xc * xc).reshape(b, t, groups, cg).mean(dim=(1, 3))
+    var = _group_mean((xc * xc).reshape(b, t, groups, cg))
     inv = torch.rsqrt(var + eps)
     scale = inv.repeat_interleave(cg, dim=-1) * gamma.float()
     y = xc * scale[:, None, :] + beta.float()[None, None, :]
@@ -90,6 +90,18 @@ def group_norm_plain(
     elif act == "relu":
         y = torch.relu(y)
     return y.to(x.dtype)
+
+
+def _group_mean(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, G, Cg] fp32 -> its mean over T and Cg, [B, G] fp32. The CPU
+    sums a strided T axis in order, which in fp32 left 5e-5 of relative
+    error in the DPT stem's GroupNorm (73,728-element groups); it sums in
+    fp64 there, which also keeps the mean of a group the same whichever
+    order the CPU's threads take (a tp rank's slab of groups against the
+    whole). CUDA reduces in a tree, in fp32."""
+    if x.is_cuda:
+        return x.mean(dim=(1, 3))
+    return (x.sum(dim=(1, 3), dtype=torch.float64) / (x.shape[1] * x.shape[3])).float()
 
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}

@@ -3,7 +3,8 @@
 
     python -m live2diff_tpu_torch.tools.aot_probe prime [--engine-dir engines]
     python -m live2diff_tpu_torch.tools.aot_probe load  [--engine-dir engines]
-        [--height 512 --width 512] [--kv-cache int8] [--tiny] [--device cuda|cpu]
+        [--height 512 --width 512] [--kv-cache int8] [--spatial-qk bf16|int8]
+        [--steps 30 40] [--tiny] [--device cuda|cpu]
 
 ``prime`` builds bench.py's default pipeline (512x512, TAESD, DPT-hybrid,
 int8 KV cache, bf16 spatial QK, uint8 frames, random weights) through
@@ -16,6 +17,13 @@ the load), ``aot_load_s`` (the checks, the loads and the validating
 step), ``prepare_s`` (warmup, the eager warm step, the capture), and
 ``first_step_s``, ``total_to_first_frame_s`` (from the start of this
 script) and ``aot_hit``. On a miss ``prepare_s`` holds the ``nvcc`` builds.
+
+``--spatial-qk`` picks the flash variant of the gated self-attentions
+(``bf16``: the d-major kernel, the port bench's default; ``int8``: the
+int8-QK kernel) and ``--steps`` the ``t_index_list``, as in
+``tools/aot_probe.py``, whose ``--spatial-qk`` defaults to ``int8``. Its
+``--no-xla-cache`` has no counterpart: it turns off JAX's persistent XLA
+compilation cache, and the port compiles no XLA program.
 """
 
 from __future__ import annotations
@@ -29,16 +37,16 @@ _T0 = time.perf_counter()
 
 def _wrapper(args):
     from ..wrapper import StreamV2VWrapper
-    from ._common import TINY_SIZE, TINY_UNET, bench_config, tiny_dtype
+    from ._common import FLASH_VARIANT, TINY_SIZE, TINY_UNET, bench_config, tiny_dtype
 
     kw = dict(height=args.height, width=args.width, kv_cache_dtype=args.kv_cache,
-              use_depth=not args.tiny)
+              use_depth=not args.tiny, flash_variant=FLASH_VARIANT[args.spatial_qk])
     if args.tiny:
         import torch
 
         kw.update(height=TINY_SIZE, width=TINY_SIZE, unet_overrides=TINY_UNET,
                   dtype=tiny_dtype(torch.device(args.device)))
-    return StreamV2VWrapper(bench_config(), output_type="np", use_text_encoder=False,
+    return StreamV2VWrapper(bench_config(args.steps), output_type="np", use_text_encoder=False,
                             engine_dir=args.engine_dir, device=args.device, seed=0,
                             **kw)
 
@@ -87,6 +95,9 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--kv-cache", default="int8")
+    p.add_argument("--spatial-qk", choices=["bf16", "int8"], default="bf16",
+                   help="flash variant of the gated self-attentions: bf16 (d-major) or int8")
+    p.add_argument("--steps", type=int, nargs="*", default=[30, 40], help="t_index_list")
     p.add_argument("--tiny", action="store_true", help="64x64, a narrow UNet, no depth model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)

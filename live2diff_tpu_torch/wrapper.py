@@ -75,11 +75,14 @@ class StreamV2VWrapper:
         kv_cache_dtype: Optional[str] = None,
         output_uint8: Optional[bool] = None,
         device: Optional[Union[str, torch.device]] = None,
+        flash_variant: str = "dmajor",
     ):
         """The JAX wrapper's arguments, plus ``device``: the card unless
-        ``"cpu"`` is asked for. On the card the kernel libraries are loaded
-        from ``engine_dir`` where it is primed for this card and toolchain
-        (``aot_hit``), and built at first use otherwise."""
+        ``"cpu"`` is asked for, and ``flash_variant`` (``build_pipeline``'s),
+        which the JAX wrapper reads from ``LIVE2DIFF_FLASH``. On the card the
+        kernel libraries are loaded from ``engine_dir`` where it is primed
+        for this card and toolchain (``aot_hit``), and built at first use
+        otherwise."""
         self.height, self.width = height, width
         self.output_type = output_type
         self.seed = seed
@@ -103,6 +106,7 @@ class StreamV2VWrapper:
             output_uint8=(output_type in ("np", "pil") if output_uint8 is None
                           else output_uint8),
             device=device,
+            flash_variant=flash_variant,
         )
         if self.built.missing_artifacts:
             print(f"[live2diff-tpu-torch] {len(self.built.missing_artifacts)} missing weight "
