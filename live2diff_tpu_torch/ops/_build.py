@@ -23,9 +23,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable
 
 import torch
+
+from ..utils.timing import RECORDER
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -110,12 +113,15 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library built from ``csrc/<name>.cu`` (built on first use;
+    each build and load counted as ``kernel_loads`` in the recorder)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(build([name])[name])
             _LIBS[name] = lib
+            RECORDER.count("kernel_loads", seconds=time.perf_counter() - t0)
         return lib
 
 

@@ -28,6 +28,11 @@ released at the next ``prepare()`` or capture.
 The kernels' wrappers count launches in Python (``ops/_build.py``
 ``launch_counts``, the route counts): they count one step at capture and
 nothing at replay.
+
+Each captured step owns the CUDA events its capture recorded at the
+step's stage boundaries (``StreamDiffusionDepth.stage_marks``): event-record
+nodes, no kernels. A replay inside a recorder call leaves them pending for
+the caller to read once it has completed (``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from ..utils.timing import RECORDER
 from .state import StreamState, cache_tensors
 
 
@@ -66,7 +72,9 @@ def capture_graph(fn: Callable[[], torch.Tensor], generators: Sequence[torch.Gen
     # may copy on its own stream during a capture.
     with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         out = fn()
-    return graph, out, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    RECORDER.count("captures", seconds=seconds)
+    return graph, out, seconds
 
 
 @dataclasses.dataclass
@@ -78,6 +86,7 @@ class CapturedStep:
     frame: torch.Tensor  # the static frame input
     out: torch.Tensor  # the static output, overwritten by each replay
     capture_s: float  # wall seconds of the capture
+    events: Optional[List[torch.cuda.Event]]  # its stage events (``stage_marks``)
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
@@ -106,8 +115,11 @@ class StepGraphs:
         if frame.shape != g.frame.shape:
             raise ValueError(f"frame of shape {tuple(frame.shape)}, expected "
                              f"{tuple(g.frame.shape)}")
-        g.frame.copy_(frame, non_blocking=True)
-        g.graph.replay()
+        with RECORDER.span("stream.upload"):
+            g.frame.copy_(frame, non_blocking=True)
+        with RECORDER.span("stream.replay"):
+            g.graph.replay()
+        RECORDER.stages_pending(g.events)
         return dataclasses.replace(state, frame_idx=state.frame_idx + 1), g.out
 
     def find(self, state: StreamState, frame_dtype: torch.dtype) -> Optional[CapturedStep]:
@@ -124,13 +136,15 @@ class StepGraphs:
         cfg = pipe.cfg
         frame = torch.zeros((cfg.height, cfg.width, 3), dtype=frame_dtype, device=pipe.device)
         tensors = state_tensors(state)
-        graph, out, seconds = capture_graph(
-            lambda: pipe._frame_step(state, frame, pipe._prompt_embeds)[1],
-            (state.generator,), self._pool)
+        with pipe.stage_marks() as events:
+            graph, out, seconds = capture_graph(
+                lambda: pipe._frame_step(state, frame, pipe._prompt_embeds)[1],
+                (state.generator,), self._pool)
         captured = CapturedStep(
             graph=graph, generator=state.generator,
             pointers=tuple(t.data_ptr() for t in tensors),
-            refs=[weakref.ref(t) for t in tensors], frame=frame, out=out, capture_s=seconds)
+            refs=[weakref.ref(t) for t in tensors], frame=frame, out=out, capture_s=seconds,
+            events=events)
         self.graphs.append(captured)
         return captured
 

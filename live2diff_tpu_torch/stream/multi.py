@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.timing import RECORDER
 from .graph import capture_graph, state_tensors
 from .pipeline import NoiseFn, Noises, StreamDiffusionDepth
 from .state import StreamState, cache_tensors
@@ -47,6 +48,7 @@ class _SessionGraph:
     frame: torch.Tensor  # the static [S, H, W, 3] input
     out: torch.Tensor  # the static [S, H, W, 3] output
     capture_s: float
+    events: List[torch.cuda.Event]  # its stage events (``stage_marks``)
 
 
 class MultiStream:
@@ -69,6 +71,7 @@ class MultiStream:
         self._states = self._allocate()
         self._graphs: Dict[Tuple[bool, torch.dtype], _SessionGraph] = {}
         self._pool = None
+        self.owner = RECORDER.owner()  # its rounds' calls in the recorder
         self.warm_s = 0.0
         self.alloc_states()
         if self.device.type == "cuda":
@@ -253,9 +256,10 @@ class MultiStream:
         frame = torch.zeros((self.num_sessions, cfg.height, cfg.width, 3), dtype=frame_dtype,
                             device=self.device)
         states = self._states
-        graph, out, seconds = capture_graph(
-            lambda: self._step(states, frame, masked, None), states.generator, self._pool)
-        self._graphs[masked, frame_dtype] = g = _SessionGraph(graph, frame, out, seconds)
+        with self.stream.stage_marks() as events:
+            graph, out, seconds = capture_graph(
+                lambda: self._step(states, frame, masked, None), states.generator, self._pool)
+        self._graphs[masked, frame_dtype] = g = _SessionGraph(graph, frame, out, seconds, events)
         return g
 
     def release_graphs(self) -> None:
@@ -267,6 +271,14 @@ class MultiStream:
             g.graph.reset()
         self._graphs.clear()
         self._pool = None
+
+    def trace_summary(self) -> dict:
+        """The recorder's read-out of this ``MultiStream``'s rounds
+        (``utils/timing.py``: ``Recorder.summary``): per span and device
+        stage count, median, p95, mean, std and EMA in ms, and the
+        counters."""
+        RECORDER.read_stages(self.owner)
+        return RECORDER.summary(self.owner)
 
     @property
     def capture_s(self) -> Dict[str, float]:
@@ -287,7 +299,10 @@ class MultiStream:
         replays the step's graph and returns a copy of its output; with
         ``noises`` (one noise function a session) it runs eagerly."""
         replay = self.device.type == "cuda" and noises is None
-        return self._round(states, frames, active, noises, replay)
+        with RECORDER.root("multi.round", self.owner):
+            # the previous round's stage times, where its replay has completed
+            RECORDER.read_stages(self.owner)
+            return self._round(states, frames, active, noises, replay)
 
     def _round(self, states: StreamState, frames, active, noises: Noises, replay: bool
                ) -> Tuple[StreamState, torch.Tensor]:
@@ -312,9 +327,13 @@ class MultiStream:
             self._check_own(states)
             g = (self._graphs.get((masked, frames.dtype))
                  or self._capture(masked, frames.dtype))
-            g.frame.copy_(frames, non_blocking=True)
-            g.graph.replay()
-            out = g.out.clone()
+            with RECORDER.span("multi.upload"):
+                g.frame.copy_(frames, non_blocking=True)
+            with RECORDER.span("multi.replay"):
+                g.graph.replay()
+            RECORDER.stages_pending(g.events)
+            with RECORDER.span("multi.clone"):
+                out = g.out.clone()
         else:
             out = self._step(states, frames.to(self.device), masked, noises)
         for gen, st in zip(idle, saved):

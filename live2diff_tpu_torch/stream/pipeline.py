@@ -35,9 +35,10 @@ step eagerly, since a Python callback cannot be captured.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +47,7 @@ from ..models.midas import DPTDepthModel, resize_nhwc
 from ..models.unet import UNet3DConditionModel
 from ..models.vae import AutoencoderKL, TinyAutoencoder
 from ..schedule import LCMSchedule
+from ..utils.timing import RECORDER, stage_events
 from .graph import StepGraphs
 from .state import StreamState, as_sessions, cache_tensors
 from .state_machine import init_window_state, mask_to_bias, update_window_state
@@ -124,6 +126,8 @@ class StreamDiffusionDepth:
         self._timesteps: Dict[int, torch.Tensor] = {1: self.sub_timesteps}
         self._prompt_embeds: Optional[torch.Tensor] = None
         self._graphs = StepGraphs()
+        # the stage events a capture in progress records (``stage_marks``)
+        self._stage_events: Optional[List[torch.cuda.Event]] = None
 
     # ------------------------------------------------------------------
     # state
@@ -221,6 +225,7 @@ class StreamDiffusionDepth:
         if self.depth_model is not None:
             frames_rgb = torch.cat(
                 [frames_rgb.float(), self._depth_image(frames_rgb, sessions)], dim=0)
+        self._mark(1)
         lat = self.vae.encode(frames_rgb.to(self.dtype).contiguous()).float()
         lat = lat * self.cfg.vae_scaling
         latents = lat[:f]
@@ -250,6 +255,24 @@ class StreamDiffusionDepth:
     # the two programs
     # ------------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def stage_marks(self):
+        """Inside the block (a capture of the step) ``_session_step``
+        records a new set of ``stage_events`` at its stage boundaries:
+        before the depth model, before the encode, before the UNet, before
+        the LCM step and the buffers, before the decode, and at its end.
+        Yields the events, which the captured graph records at each replay.
+        Outside it (eager steps, the warm step, the CPU) it records none."""
+        self._stage_events = stage_events(self.device)
+        try:
+            yield self._stage_events
+        finally:
+            self._stage_events = None
+
+    def _mark(self, boundary: int) -> None:
+        if self._stage_events is not None:
+            self._stage_events[boundary].record()
+
     @torch.no_grad()
     def _session_step(self, states: StreamState, frames_rgb: torch.Tensor, prompt_embeds,
                       noises: Noises = None) -> torch.Tensor:
@@ -265,9 +288,11 @@ class StreamDiffusionDepth:
         ``frame_idx`` is the caller's."""
         cfg, n = self.cfg, self.num_steps
         sessions = frames_rgb.shape[0]
+        self._mark(0)
         if frames_rgb.dtype == torch.uint8:
             frames_rgb = frames_rgb.float() / 127.5 - 1.0
         x_t_new, depth_new = self._encode_frame_and_depth(states.generator, frames_rgb, noises)
+        self._mark(2)
         if n > 1:  # [S, n, h, w, 4]: the new frame first, then the buffered ones
             x_t = _prepend(x_t_new, states.x_t_buffer)
             depth = _prepend(depth_new, states.depth_buffer)
@@ -293,6 +318,7 @@ class StreamDiffusionDepth:
         if any(a is not b for a, b in zip(cache_tensors(new_caches), cache_tensors(caches))):
             raise RuntimeError("the UNet returned new KV cache tensors: the stream step "
                                "needs them written in place")
+        self._mark(3)
         model_pred = out[:, 0].float().reshape(x_t.shape)
         x0_batch = self._scheduler_step_batch(model_pred, x_t)  # [S, n, h, w, 4]
         window = tuple(rows(t) for t in (states.attn_mask, states.pe_idx, states.update_idx))
@@ -308,7 +334,10 @@ class StreamDiffusionDepth:
             else:
                 torch.mul(self.alpha[1:], x0_batch[:, :-1], out=states.x_t_buffer)
             states.depth_buffer.copy_(depth[:, :-1])
-        return self._decode_latents(x0_batch[:, -1])
+        self._mark(4)
+        out = self._decode_latents(x0_batch[:, -1])
+        self._mark(5)
+        return out
 
     def _frame_step(self, state: StreamState, frame_rgb: torch.Tensor, prompt_embeds,
                     noise: Optional[NoiseFn] = None) -> Tuple[StreamState, torch.Tensor]:
@@ -419,11 +448,13 @@ class StreamDiffusionDepth:
         fresh copy of the graph's output; a capture that fails raises."""
         if self._prompt_embeds is None:
             raise RuntimeError("call prepare() first")
-        if self.device.type == "cuda" and noise is None:
-            state, out = self._graphs.step(self, state, torch.as_tensor(frame))
-            return state, out.clone()
-        frame = torch.as_tensor(frame, device=self.device)
-        return self._frame_step(state, frame, self._prompt_embeds, noise)
+        with RECORDER.span("stream.step"):
+            if self.device.type == "cuda" and noise is None:
+                state, out = self._graphs.step(self, state, torch.as_tensor(frame))
+                with RECORDER.span("stream.clone"):
+                    return state, out.clone()
+            frame = torch.as_tensor(frame, device=self.device)
+            return self._frame_step(state, frame, self._prompt_embeds, noise)
 
     def stream_burst(self, state: StreamState, frames, noise: Optional[NoiseFn] = None
                      ) -> Tuple[StreamState, torch.Tensor]:

@@ -19,6 +19,13 @@ trusted as the package's sources: loading a library runs its code. The
 JAX wrapper also points XLA's persistent compilation cache at
 ``<engine_dir>/xla_cache``; the port has no counterpart beyond the build
 directory (``build/kernels/``), which holds the libraries it builds.
+
+Each ``img2img`` is one call of the wrapper in the port's recorder
+(``utils/timing.py``): a ``wrapper.img2img`` span with the preprocess, the
+filter, the step (upload, replay, output copy), the sync, the fetch and
+the postprocess as its children, and, on the card, the captured step's
+device stages. ``trace_summary()`` reads them; ``timing_summary()`` is its
+summary of the whole call.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from .builder import BuiltPipeline, build_pipeline, encode_prompt_for_pipeline
 from .convert.lora import lora_delta_state_dict
 from .utils.filter import SimilarImageFilter
 from .utils.image import postprocess_image, preprocess_image
+from .utils.timing import RECORDER
 
 WARMUP_FRAMES = 8
 
@@ -124,8 +132,7 @@ class StreamV2VWrapper:
             if enable_similar_image_filter else None)
         self._state = None
         self._prev_output = None
-        self.inference_time_ema = 0.0
-        self.inference_time_list: List[float] = []
+        self.owner = RECORDER.owner()  # its calls in the recorder
         self.first_step_warm_s = 0.0
         self.capture_s = 0.0
 
@@ -196,31 +203,51 @@ class StreamV2VWrapper:
         by ``batch_size - 1`` frames."""
         if self._state is None:
             raise RuntimeError("call prepare() with 8 warmup frames first")
-        t0 = time.perf_counter()
-        frame = preprocess_image(image, self.height, self.width)
-        if self.similar_filter is not None and self.similar_filter(frame) is None \
-                and self._prev_output is not None:
-            time.sleep(self.inference_time_ema)
+        with RECORDER.root("wrapper.img2img", self.owner):
+            with RECORDER.span("wrapper.preprocess"):
+                frame = preprocess_image(image, self.height, self.width)
+            if self.similar_filter is not None:
+                with RECORDER.span("wrapper.filter"):
+                    skip = self.similar_filter(frame) is None and self._prev_output is not None
+                if skip:
+                    RECORDER.count("filter_skips", self.owner)
+                    time.sleep(self.inference_time_ema)
+                    return self._prev_output
+            self._state, out = self.stream(self._state, torch.from_numpy(frame))
+            if out.is_cuda:
+                with RECORDER.span("wrapper.sync"):
+                    torch.cuda.synchronize(out.device)
+                RECORDER.read_stages(self.owner)
+                if self.output_type in ("np", "pil"):
+                    with RECORDER.span("wrapper.fetch"):
+                        out = out.cpu()
+            with RECORDER.span("wrapper.postprocess"):
+                self._prev_output = postprocess_image(out, self.output_type)
             return self._prev_output
-        self._state, out = self.stream(self._state, torch.from_numpy(frame))
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-        dt = time.perf_counter() - t0
-        self.inference_time_ema = (dt if not self.inference_time_list
-                                   else 0.9 * self.inference_time_ema + 0.1 * dt)
-        self.inference_time_list.append(dt)
-        self._prev_output = postprocess_image(out, self.output_type)
-        return self._prev_output
 
     __call__ = img2img
 
+    @property
+    def inference_time_ema(self) -> float:
+        """The EMA of a call's seconds (the recorder's)."""
+        return RECORDER.ema_s(self.owner, "wrapper.img2img")
+
+    def trace_summary(self) -> dict:
+        """The recorder's read-out of this wrapper's calls in its rings
+        (the last 4,096 or more): per span (``wrapper.*``, ``stream.*``) and
+        per device stage (``device.*``, on the card) the count and the
+        median, p95, mean, std (the first call left out) and EMA in ms; and
+        the counters: ``calls``, ``filter_skips``, ``stage_reads_missed``,
+        and the process's ``captures`` and ``kernel_loads`` with their
+        seconds."""
+        return RECORDER.summary(self.owner)
+
     def timing_summary(self) -> Dict[str, float]:
-        """EMA, mean and std of the frame seconds (the first frame left
-        out) and the fps of the mean."""
-        times = np.asarray(self.inference_time_list[1:] or [0.0])
-        return {
-            "ema_s": self.inference_time_ema,
-            "mean_s": float(times.mean()),
-            "std_s": float(times.std()),
-            "fps": float(1.0 / times.mean()) if times.mean() > 0 else 0.0,
-        }
+        """EMA, mean and std of a call's seconds (the first call left out)
+        and the fps of the mean, from the recorder."""
+        call = self.trace_summary()["spans"].get("wrapper.img2img")
+        if call is None:
+            return {"ema_s": 0.0, "mean_s": 0.0, "std_s": 0.0, "fps": 0.0}
+        mean_s = call["mean_ms"] / 1e3
+        return {"ema_s": call["ema_ms"] / 1e3, "mean_s": mean_s, "std_s": call["std_ms"] / 1e3,
+                "fps": 1.0 / mean_s if mean_s > 0 else 0.0}

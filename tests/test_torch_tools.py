@@ -1,8 +1,6 @@
 """The port's measuring tools (live2diff_tpu_torch/tools/, utils/timing.py)
 on the CPU, against the JAX package's where there is one.
 
-* ``EmaTimer`` against ``live2diff_tpu.utils.timing.EmaTimer`` on one
-  sequence of samples: equal EMA and summary.
 * ``psnr`` against ``tools/psnr.py:psnr`` (loaded by path) on random uint8
   frames, and inf on equal frames.
 * ``parity`` at ``--tiny --device cpu`` against its own earlier output: inf
@@ -23,9 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from live2diff_tpu.utils.timing import EmaTimer as JaxEmaTimer
 from live2diff_tpu_torch.tools import aot_probe, parity, profile_stages, psnr, trace_step
-from live2diff_tpu_torch.utils.timing import EmaTimer, profile_trace
+from live2diff_tpu_torch.utils.timing import profile_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,20 +33,6 @@ def _jax_tool(name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-def test_ema_timer_matches_jax():
-    samples = [("unet", 0.031), ("vae", 0.004), ("unet", 0.027), ("unet", 0.029),
-               ("vae", 0.0041), ("depth", 0.012), ("unet", 0.0305)]
-    ours, ref = EmaTimer(decay=0.8), JaxEmaTimer(decay=0.8)
-    for stage, dt in samples:
-        ours.add(stage, dt)
-        ref.add(stage, dt)
-    assert ours.ema == ref.ema and ours.history == ref.history
-    assert ours.summary() == ref.summary()
-    with ours.track("host"):
-        pass
-    assert ours.history["host"][0] >= 0 and ours.summary()["host"]["count"] == 1
 
 
 def test_psnr_matches_jax():

@@ -134,7 +134,7 @@ def test_timing_summary_keys(cfg):
         w(f)
     t = w.timing_summary()
     assert set(t) == {"ema_s", "mean_s", "std_s", "fps"}
-    assert len(w.inference_time_list) == 3 and t["mean_s"] > 0 and t["fps"] > 0
+    assert w.trace_summary()["counters"]["calls"] == 3 and t["mean_s"] > 0 and t["fps"] > 0
     assert t["fps"] == pytest.approx(1.0 / t["mean_s"])
 
 
@@ -145,7 +145,9 @@ def test_similar_image_filter_skips_repeats_and_replays_the_output(cfg):
     w.prepare("x", frames[:WARMUP_FRAMES])
     first = w(frames[-1])
     again = w(frames[-1])  # identical: similarity 1, always skipped
-    assert again is first and len(w.inference_time_list) == 1
+    summary = w.trace_summary()
+    assert again is first and summary["spans"]["stream.step"]["count"] == 1
+    assert summary["counters"]["calls"] == 2 and summary["counters"]["filter_skips"] == 1
 
 
 # ---------------------------------------------------------------------------
