@@ -29,8 +29,15 @@ Phases, each printed as it ends; any failure exits non-zero:
    frames), random weights from seed 0: ``prepare`` on 8 warmup frames,
    then streamed frames, timed and profiled; every kernel's launches in
    ``prepare`` and per stream step are asserted (stream attention's by
-   route too: on a 132-SM card 40 on TMA, 30 of them in clusters), and the
-   profiled launches a step may not exceed 7,265. The stream step is a
+   route too: on a 132-SM card 40 on TMA, 30 of them in clusters; the
+   GroupNorm and LayerNorm kernels, at every site by default, 132 and 132
+   a step, 212 and 240 in prepare, one launch for each call routed to
+   them, counted by hooks on the modules and by the route counter; the
+   step's one plain norm call is the UNet's GroupNorm at [2, 4096, 960],
+   over the JAX cap on T * C), and the profiled launches a step may not
+   exceed 3,949. In every phase that streams at full width the norms'
+   launches are held to the calls the hooks see routed to the kernels. The
+   stream step is a
    CUDA graph, captured at the first frame and replayed at every frame, so
    in phases 4-10 a step's launches are asserted twice: (a) the wrappers'
    counts over the capture, which are one step's (the replays add none),
@@ -42,11 +49,13 @@ Phases, each printed as it ends; any failure exits non-zero:
    maps, per call.
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames,
-   profiled, with the bf16 stream-attention kernel's launches asserted.
+   profiled, with the bf16 stream-attention kernel's launches asserted
+   (and the UNet's norms: 80 GroupNorm, 108 LayerNorm launches a step).
 6. int8 QK: phase 4 with ``flash_variant="int8"`` (bench.py's
    ``--spatial-qk int8``): 32 frames, profiled; the int8-QK flash kernel
    takes the 10 self-attentions a step that pass the flash gate.
-7. GroupNorm kernel: phase 4 with ``gn_kernel_sites="all"``: 16 frames,
+7. GroupNorm kernel: phase 4 with ``gn_kernel_sites="all"`` named (the
+   default, so the same pipeline as phase 4's): 16 frames,
    profiled, beside phase 4's frame times and device profile; every
    GroupNorm module whose input meets the JAX conditions launches the
    kernel once (counted by hooks on the modules over ``prepare`` and one
@@ -63,8 +72,9 @@ Phases, each printed as it ends; any failure exits non-zero:
 9. s-major A/B: phase 8 with ``flash_variant="smajor"``: 8 frames,
    profiled; the s-major flash kernel takes the 10 gated self-attentions a
    step, at S = 6144 and 1536.
-10. LayerNorm kernel at every site (``ln_kernel_sites="all"``, the UNet's
-   C = 320-1280 LayerNorms with it): ``prepare`` and 4 frames at 512x512,
+10. LayerNorm kernel at every site (``ln_kernel_sites="all"`` named, the
+   default; the UNet's C = 320-1280 LayerNorms with it): ``prepare`` and 4
+   frames at 512x512,
    profiled; every LayerNorm whose input meets the JAX conditions launches
    the kernel once (counted by hooks, which log its shapes); then the
    kernel is checked against its plain version at each of those shapes.
@@ -231,7 +241,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    from the same inputs, every uint8 output and the latents each step
    leaves within their limits (``PARAM_DTYPE_RMS_TOL``,
    ``PARAM_DTYPE_LATENT_TOL``, relative RMS) of the twin's, the same
-   hand-kernel launches a step, the twin's kernels a step within 7,265 (the
+   hand-kernel launches a step, the twin's kernels a step within 3,949 (the
    profile); prints each one's relative RMS, kernels and device ms a step,
    parameter bytes and peak memory. Last, the control: the fp32-parameter
    pipeline with one UNet GroupNorm bias dropped, 20 frames again, whose
@@ -279,9 +289,9 @@ PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
 # and the card's max SM clock, both read in main()
 SFU_PER_SM_CLOCK = 16
 SFU_RATE = []  # [exp / s], set once the card is known
-# kernel launches a main-path stream step in the profile, measured before
-# the int8 KV cache divided by a tensor: that division must not add any
-MAIN_PATH_LAUNCHES_PER_STEP = 7265
+# kernel launches a main-path stream step in the profile, measured with the
+# norm kernels at every site (the defaults): nothing may add any
+MAIN_PATH_LAUNCHES_PER_STEP = 3949
 # stream-attention launches a main-path step by route (132 SMs)
 MAIN_PATH_ROUTES = {"tma": 40, "scalar": 0, "cluster": 30}
 
@@ -351,23 +361,36 @@ WIDE_FRAMES = 24
 SMAJOR_FRAMES = 8
 LN_FRAMES = 4
 INTERLEAVED_ROUNDS = 30
-# the three opt-in kernels: none of them on bench.py's main path
-OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0, "group_norm": 0,
+# the two opt-in flash variants: neither on bench.py's main path
+OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0,
               # nor the training kernels, on any path but phase 16's
               "flash_train_fwd": 0, "flash_train_bwd": 0}
+# the norm kernels run at every site by default, where a call's input allows
+# (ops/norm.py:gn_route, ln_route): a main-path step's 133 GroupNorms (81 in
+# the UNet, 52 in the DPT) but the UNet's [2, 4096, 960], over the JAX cap on
+# T * C, and its 132 LayerNorms (108 in the UNet, 24 in the ViT); prepare's
+# two UNet forwards and one DPT forward, 212 and 240. run_stream counts them
+# by hooks in every phase; phase 4 holds the hooks to these numbers
+MAIN_PATH_NORMS_PER_STEP = {"group_norm": 132, "layer_norm": 132}
+MAIN_PATH_NORMS_PREPARE = {"group_norm": 212, "layer_norm": 240}
+# the norm calls of a main-path step that run plain: [B, T, C] of each
+MAIN_PATH_PLAIN_GN = [(2, 4096, 960)]
 # launches per stream step with depth: flash 32 in the UNet + 12 in the ViT;
 # the one batched encode of frame and depth image keeps the conv counts
 EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 44,
-                     "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
+                     "conv3x3": 64, "conv3x3_s2": 3, **MAIN_PATH_NORMS_PER_STEP,
                      "stream_attention_bf16": 0, **OPT_IN_OFF}
 # prepare(): 2 warmup UNet forwards (32 spatial + 40 motion attentions each)
 # and one DPT forward over the 8 warmup frames
 EXPECTED_PREPARE = {"stream_attention_int8": 0, "flash_attention": 156,
-                    "conv3x3": 64, "conv3x3_s2": 3, "layer_norm": 24,
+                    "conv3x3": 64, "conv3x3_s2": 3, **MAIN_PATH_NORMS_PREPARE,
                     "stream_attention_bf16": 0, **OPT_IN_OFF}
+# no depth model: the UNet's norms alone
 EXPECTED_PER_STEP_BF16 = {"stream_attention_bf16": 40, "stream_attention_int8": 0,
                           "flash_attention": 32, "conv3x3": 64, "conv3x3_s2": 3,
-                          "layer_norm": 0, **OPT_IN_OFF}
+                          "group_norm": 80, "layer_norm": 108, **OPT_IN_OFF}
+EXPECTED_PREPARE_BF16 = {"stream_attention_int8": 0, "group_norm": 160, "layer_norm": 216,
+                         **OPT_IN_OFF}
 # a flash variant takes the self-attentions that pass the flash gate
 # (S >= 1024, a multiple of 128): the 5 spatial transformers at each of the
 # two top latent levels, 10 a step and 10 per warmup forward in prepare;
@@ -1057,15 +1080,19 @@ def check_counts(what, counts, expected, per: int):
 
 def group_norm_recorder(torch, modules):
     """Forward pre-hooks on every FusedGroupNorm of ``modules`` that log
-    (B, T, C, groups, eps, act) of each call meeting the JAX package's
-    kernel conditions (``live2diff_tpu/ops/norm.py:140-147``: T * C <=
-    3 * 2^20, C % groups == 0, C % 8 == 0) and the kernel's widest row
-    (C <= GN_MAX_CHANNELS, wider than any model's). Returns (log, remove)."""
+    (B, T, C, groups, eps, act) of each call, as the module hands it to
+    ``group_norm_act``, by the route ``ops/norm.py:gn_route`` gives it: the
+    kernel where x is bf16 on the card, no gradient is needed, the module's
+    choices name its site, the JAX package's conditions hold
+    (``live2diff_tpu/ops/norm.py:140-147``: T * C <= 3 * 2^20, C % groups ==
+    0, C % 8 == 0) and C <= GN_MAX_CHANNELS. Returns (kernel log, plain log,
+    remove)."""
     from live2diff_tpu_torch.models.layers import FusedGroupNorm
     from live2diff_tpu_torch.models.resnet import InflatedGroupNorm
-    from live2diff_tpu_torch.ops.norm import GN_MAX_CHANNELS, GN_MAX_ELEMS
+    from live2diff_tpu_torch.ops._build import needs_grad
+    from live2diff_tpu_torch.ops.norm import gn_route
 
-    log = []
+    log, plain = [], []
 
     def hook(mod, args):
         x = args[0]
@@ -1073,41 +1100,61 @@ def group_norm_recorder(torch, modules):
         # InflatedGroupNorm folds its frame axis into the batch
         n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
         t = x.numel() // (n * c)
-        if (t * c <= GN_MAX_ELEMS and c % mod.num_groups == 0 and c % 8 == 0
-                and c <= GN_MAX_CHANNELS):
-            log.append((n, t, c, mod.num_groups, mod.eps, mod.act))
+        groups = mod.num_groups * mod.weight.numel() // mod.channels
+        route = gn_route(t, c, groups, x.dtype, x.device.type,
+                         needs_grad(x, mod.weight, mod.bias), mod.site, mod.kernels)
+        (log if route == "gn_kernel" else plain).append((n, t, c, groups, mod.eps, mod.act))
 
     handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
                if isinstance(m, FusedGroupNorm)]
-    return log, lambda: [h.remove() for h in handles]
+    return log, plain, lambda: [h.remove() for h in handles]
 
 
 def layer_norm_recorder(torch, modules):
     """Forward pre-hooks on every FusedLayerNorm of ``modules`` that log
-    (site, rows, C, eps) of each call meeting the JAX package's kernel
-    conditions at a site the module's choices name
+    (site, rows, C, eps) of each call by the route ``ops/norm.py:ln_route``
+    gives it: the kernel where x is bf16 on the card, no gradient is needed,
+    the module's choices name its site and the JAX package's conditions hold
     (``live2diff_tpu/ops/norm.py:239-246``: C % 8 == 0, at least 2^14
-    elements). Returns (log, remove)."""
+    elements) and C <= LN_MAX_CHANNELS. Returns (kernel log, plain log,
+    remove)."""
     from live2diff_tpu_torch.models.layers import FusedLayerNorm
-    from live2diff_tpu_torch.ops.norm import LN_MIN_ELEMS
+    from live2diff_tpu_torch.ops._build import needs_grad
+    from live2diff_tpu_torch.ops.norm import ln_route
 
-    log = []
+    log, plain = [], []
 
     def hook(mod, args):
         x = args[0]
-        if (mod.kernels.ln_kernel_at(mod.site) and x.shape[-1] % 8 == 0
-                and x.numel() >= LN_MIN_ELEMS):
-            c = x.shape[-1]
-            log.append((mod.site, x.numel() // c, c, mod.eps))
+        c = x.shape[-1]
+        route = ln_route(x.numel(), c, x.dtype, x.device.type,
+                         needs_grad(x, mod.weight, mod.bias), mod.site, mod.kernels)
+        (log if route == "ln_kernel" else plain).append((mod.site, x.numel() // c, c, mod.eps))
 
     handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
                if isinstance(m, FusedLayerNorm)]
-    return log, lambda: [h.remove() for h in handles]
+    return log, plain, lambda: [h.remove() for h in handles]
+
+
+def norm_expected(what, expected, name, logged):
+    """``expected`` with the norm ``name``'s launches set to its logged
+    kernel-routed calls, which must number what ``expected`` says where it
+    names the norm."""
+    n = sum(logged.values())
+    if name in expected and expected[name] != n:
+        raise AssertionError(f"{what}: {n} {name} calls routed to the kernel, expected "
+                             f"{expected[name]}: {sorted(logged.items())}")
+    return {**expected, name: n}
+
+
+def without_norms(expected):
+    """``expected`` less the norms: run_stream takes their launches from the
+    calls it logs (another frame size than the main path's)."""
+    return {k: v for k, v in expected.items() if k not in ("group_norm", "layer_norm")}
 
 
 def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
-               height=512, width=512, record_gn=False, record_ln=False, keep=None,
-               **build_kw):
+               height=512, width=512, keep=None, **build_kw):
     """build_pipeline at full width, prepare, then ``n_frames`` frames, each
     timed on the host clock to a synchronize. The first frame captures the
     step in a CUDA graph; every frame replays it. Launch counts are zeroed
@@ -1115,11 +1162,14 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     prepare and after the first frame (the capture: one step), and again
     after the last (replays launch nothing through the wrappers); then the
     device kernels of each wrapper are asserted per step in the profile of
-    a few replays. With ``record_gn`` (``record_ln``) the GroupNorm
-    (LayerNorm) calls that meet the kernel conditions are logged over
-    prepare and the (untimed) warm step, and ``group_norm``
-    (``layer_norm``) is expected to launch once for each of them. ``keep``,
-    a list, gets the stream, its state and the frames, for ``interleaved``."""
+    a few replays. The GroupNorm and LayerNorm calls are logged by their
+    routes over prepare and the (untimed) warm step, and ``group_norm``
+    (``layer_norm``) is expected to launch once for each kernel-routed call;
+    where ``expected_step`` or ``expected_prepare`` names a norm, the logged
+    calls must number what it says. The route counter
+    (``norm_route_counts``) over the capture must agree with the logs.
+    ``keep``, a list, gets the stream, its state and the frames, for
+    ``interleaved``."""
     from live2diff_tpu_torch.builder import build_pipeline
     from live2diff_tpu_torch.ops import norm, stream_attention
 
@@ -1137,12 +1187,10 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     n_params = {"unet": sum(p.numel() for p in built.unet.parameters())}
     if built.depth_model is not None:
         n_params["depth"] = sum(p.numel() for p in built.depth_model.parameters())
-    recorders = {}  # kernel name -> (log, remove) of its hooks
     models = [m for m in (built.unet, built.depth_model) if m is not None]
-    if record_gn:
-        recorders["group_norm"] = group_norm_recorder(torch, models)
-    if record_ln:
-        recorders["layer_norm"] = layer_norm_recorder(torch, models)
+    # kernel name -> (kernel log, plain log, remove) of its hooks
+    recorders = {"group_norm": group_norm_recorder(torch, models),
+                 "layer_norm": layer_norm_recorder(torch, models)}
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
@@ -1165,10 +1213,12 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     if not all(finite):
         raise AssertionError("prepare() left non-finite KV caches (or int8 scales)")
     logged_prepare = {}
-    for name, (log, _) in recorders.items():
+    for name, (log, plain, _) in recorders.items():
         logged_prepare[name] = Counter(log)
         log.clear()
-        expected_prepare = {**expected_prepare, name: sum(logged_prepare[name].values())}
+        plain.clear()
+        expected_prepare = norm_expected("prepare", expected_prepare, name,
+                                         logged_prepare[name])
     check_counts("prepare", warm_counts, expected_prepare, 1)
     peak_prepare = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1177,15 +1227,16 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     first_step_s = stream.warm_frame_step(torch.uint8)
     peak_warm_step = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    logged_step = {}
-    for name, (log, remove_hooks) in recorders.items():
-        logged_step[name] = Counter(log)
+    logged_step, plain_step = {}, {}
+    for name, (log, plain, remove_hooks) in recorders.items():
+        logged_step[name], plain_step[name] = Counter(log), Counter(plain)
         remove_hooks()
-        expected_step = {**expected_step, name: sum(logged_step[name].values())}
+        expected_step = norm_expected("the warm step", expected_step, name, logged_step[name])
 
     _build.reset_launch_counts()
     routes_before = dict(stream_attention.route_counts)
     gn_routes_before = dict(norm.gn_route_counts)
+    norm_routes_before = dict(norm.norm_route_counts)
     times, outs = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
@@ -1195,6 +1246,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         outs.append(out)
         if i == 0:
             captured = dict(_build.launch_counts)
+            norm_routes = {k: v - norm_routes_before[k] for k, v in norm.norm_route_counts.items()}
         # uint8 frames cannot show a NaN: check the latents the step made
         if not torch.isfinite(state.x_t_buffer).all():
             raise AssertionError(f"frame {i}: non-finite latents")
@@ -1208,6 +1260,13 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     # (a) the wrappers' counts over the capture are one step's; the replays
     # add none
     check_counts("the capture of the stream step", captured, expected_step, 1)
+    hooked = {"gn_kernel": sum(logged_step["group_norm"].values()),
+              "gn_plain": sum(plain_step["group_norm"].values()),
+              "ln_kernel": sum(logged_step["layer_norm"].values()),
+              "ln_plain": sum(plain_step["layer_norm"].values())}
+    if norm_routes != hooked:
+        raise AssertionError(f"the capture's norm routes {norm_routes}, the warm step's hooks "
+                             f"{hooked}")
     if counts != captured:
         raise AssertionError(f"{n_frames - 1} replays launched through the wrappers: "
                              f"{counts} after them, {captured} after the capture")
@@ -1238,11 +1297,11 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         launches_per_step=captured,
         stream_attention_routes_per_step=routes,
         group_norm_routes_per_step=gn_routes,
+        norm_routes_per_step=norm_routes,
+        plain_norms_per_step={k: sorted(v.items()) for k, v in plain_step.items()},
+        # (step, prepare) Counters of each norm's kernel-routed calls: not printed
+        norm_logs={k: (logged_step[k], logged_prepare[k]) for k in recorders},
     )
-    if record_gn:
-        result["group_norm_shapes"] = (logged_step["group_norm"], logged_prepare["group_norm"])
-    if record_ln:
-        result["layer_norm_sites"] = (logged_step["layer_norm"], logged_prepare["layer_norm"])
     if built.depth_model is not None:
         result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
     if keep is not None:
@@ -1424,7 +1483,7 @@ def print_rows(k) -> None:
 
 def report_stream(result) -> None:
     print(json.dumps({k: v for k, v in result.items()
-                      if k not in ("frame_ms_all", "raw_depth", "depth_profile")}))
+                      if k not in ("frame_ms_all", "raw_depth", "depth_profile", "norm_logs")}))
     if "depth_profile" in result:
         print(f"depth branch profile: {json.dumps(result['depth_profile'])}")
     print(f"frame ms all: {[round(t, 3) for t in result['frame_ms_all']]}")
@@ -2840,7 +2899,7 @@ START_PROMPT = "a cat in the rain"
 START_TIMEOUT_S = 600
 # the wrappers of the main path, each of which a warm first frame launches
 MAIN_PATH_WRAPPERS = ("stream_attention_int8", "flash_attention", "conv3x3", "conv3x3_s2",
-                      "layer_norm")
+                      "layer_norm", "group_norm")
 TRACE_FRAMES = 8
 TRACE_DEVICE_TOL = 0.03  # trace_step's device ms a frame against phase 4's profile
 PARITY_FRAMES = 14  # toonyou.yaml's 4 steps: 8 warmup frames, a lag of 3, 3 outputs
@@ -3110,8 +3169,11 @@ TP_STREAM = dict(latent=64, steps=2, frames=8, text_len=77)
 # round to bf16 once more a block (partials, then their sum)
 TP_RMS_TOL = 1e-2
 # each rank's launches a stream step: #1 at every temporal attention, #3 at
-# the UNet's spatial attentions (phase 4's 44 less the ViT's 12), nothing else
-TP_STEP_LAUNCHES = {"stream_attention_int8": 40, "flash_attention": 32}
+# the UNet's spatial attentions (phase 4's 44 less the ViT's 12), the UNet's
+# norms on #8 and #9 (phase 5's 80 and 108: a rank's slab of whole groups
+# takes the GroupNorm kernel), nothing else
+TP_STEP_LAUNCHES = {"stream_attention_int8": 40, "flash_attention": 32, "group_norm": 80,
+                    "layer_norm": 108}
 # (c) the train step at tp = 2 at phase 16's widths (256x256, batch 2, clip
 # 4, fp32, TF32 off), every weight drawn (the zero-initialised output
 # projections too, so every motion gradient is nonzero), against one
@@ -3713,7 +3775,7 @@ FULL_RMS_TOL = 0.1
 # not carried through the chain
 FULL_BLOCK_TOL = 2e-2
 FULL_KERNELS = ("stream_attention_int8", "flash_attention", "conv3x3", "conv3x3_s2",
-                "layer_norm")
+                "layer_norm", "group_norm")
 
 
 class BlockRecorder:
@@ -4050,6 +4112,16 @@ def main() -> int:
     if isinstance(step_launches, float) and step_launches > MAIN_PATH_LAUNCHES_PER_STEP:
         raise AssertionError(f"main path: {step_launches} launches a step, more than "
                              f"{MAIN_PATH_LAUNCHES_PER_STEP}")
+    # the norm kernels at every site (the defaults): run_stream held the
+    # launches to MAIN_PATH_NORMS_*; every other norm call of the step runs
+    # plain, and only the UNet's GroupNorm over the JAX cap on T * C may
+    plain = result["plain_norms_per_step"]
+    print(f"norm routes a step: {json.dumps(result['norm_routes_per_step'])}; plain calls "
+          f"(shape, calls): {json.dumps(plain)}")
+    plain_gn = sorted(shape[:3] for shape, k in plain["group_norm"] for _ in range(k))
+    if plain_gn != MAIN_PATH_PLAIN_GN or plain["layer_norm"]:
+        raise AssertionError(f"main path: plain norm calls {plain}, expected GroupNorm at "
+                             f"{MAIN_PATH_PLAIN_GN} only")
     main_path = headline(result)
     dev_main = result["device_kernels_per_step"]
     main_keep = list(kept[0])  # phase 4's stream, for phases 13, 14 and 17
@@ -4057,10 +4129,10 @@ def main() -> int:
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
     result_bf16, counts_bf16 = run_stream(
-        torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16,
-        {"stream_attention_int8": 0, "layer_norm": 0, **OPT_IN_OFF},
+        torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16, EXPECTED_PREPARE_BF16,
         kv_cache_dtype="bf16", use_depth=False)
-    print(json.dumps({k: v for k, v in result_bf16.items() if k != "frame_ms_all"}))
+    print(json.dumps({k: v for k, v in result_bf16.items()
+                      if k not in ("frame_ms_all", "norm_logs")}))
     dev_bf16 = result_bf16["device_kernels_per_step"]
     del result_bf16
 
@@ -4077,9 +4149,8 @@ def main() -> int:
 
     phase("GroupNorm kernel at every site (gn_kernel_sites='all')")
     result, counts_gn = run_stream(torch, _build, GN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                                   record_gn=True, keep=kept,
-                                   kv_cache_dtype="int8", gn_kernel_sites="all")
-    gn_step, gn_prepare = result.pop("group_norm_shapes")
+                                   keep=kept, kv_cache_dtype="int8", gn_kernel_sites="all")
+    gn_step, gn_prepare = result["norm_logs"]["group_norm"]
     report_stream(result)
     gn_per_step = counts_gn["group_norm"]
     print(f"group_norm launches: {gn_per_step} a step (one per "
@@ -4114,8 +4185,9 @@ def main() -> int:
     kernels.append(gn_entry)
 
     phase("768x512 at full width: bench.py's second row (d-major flash, as bench.py runs it)")
-    result, _ = run_stream(torch, _build, WIDE_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                           height=512, width=768, kv_cache_dtype="int8")
+    result, _ = run_stream(torch, _build, WIDE_FRAMES, without_norms(EXPECTED_PER_STEP),
+                           without_norms(EXPECTED_PREPARE), height=512, width=768,
+                           kv_cache_dtype="int8")
     report_stream(result)
     wide = headline(result)
     del result
@@ -4123,8 +4195,8 @@ def main() -> int:
     phase("768x512 s-major A/B: phase 8 with flash_variant='smajor'")
     result, counts_smajor = run_stream(
         torch, _build, SMAJOR_FRAMES,
-        with_variant(EXPECTED_PER_STEP, "flash_attention_smajor", GATED_PER_STEP),
-        with_variant(EXPECTED_PREPARE, "flash_attention_smajor", GATED_PREPARE),
+        with_variant(without_norms(EXPECTED_PER_STEP), "flash_attention_smajor", GATED_PER_STEP),
+        with_variant(without_norms(EXPECTED_PREPARE), "flash_attention_smajor", GATED_PREPARE),
         height=512, width=768, kv_cache_dtype="int8", flash_variant="smajor")
     report_stream(result)
     print(f"beside phase 8: {json.dumps({'d-major': wide, 's-major': headline(result)})}")
@@ -4133,9 +4205,8 @@ def main() -> int:
 
     phase("LayerNorm kernel at every site (ln_kernel_sites='all')")
     result, counts_ln = run_stream(torch, _build, LN_FRAMES, EXPECTED_PER_STEP, EXPECTED_PREPARE,
-                                   record_ln=True, kv_cache_dtype="int8",
-                                   ln_kernel_sites="all")
-    ln_step, ln_prepare = result.pop("layer_norm_sites")
+                                   kv_cache_dtype="int8", ln_kernel_sites="all")
+    ln_step, ln_prepare = result["norm_logs"]["layer_norm"]
     by_site = Counter()
     for (site, _, c, _), k in ln_step.items():
         by_site[site, c] += k
@@ -4145,7 +4216,7 @@ def main() -> int:
           f"{sum(ln_prepare.values())} in prepare")
     if not by_site[("spatial", 1280)] or not by_site[("temporal", 1280)]:
         raise AssertionError(f"ln_kernel_sites='all': no kernel LayerNorm at C = 1280: {ln_step}")
-    print(json.dumps({k: v for k, v in result.items() if k != "frame_ms_all"}))
+    print(json.dumps({k: v for k, v in result.items() if k not in ("frame_ms_all", "norm_logs")}))
     del result
     # the kernel against its plain version at every shape phase 10 gave it
     ln_index = next(i for i, k in enumerate(kernels) if k["name"] == "layer_norm")

@@ -35,7 +35,7 @@ from .models.midas import DPTConfig, DPTDepthModel
 from .models.text_encoder import CLIPTextModelWithFinalNorm
 from .models.unet import UNet3DConditionModel, UNetConfig
 from .models.vae import AutoencoderKL, TinyAutoencoder, VAEConfig
-from .ops.choices import KernelChoices, Sites
+from .ops.choices import DEFAULT_KERNELS, KernelChoices, Sites
 from .schedule import LCMSchedule
 from .stream.pipeline import StreamConfig, StreamDiffusionDepth
 from .utils.tokenizer import CLIPTokenizer
@@ -192,9 +192,9 @@ def build_pipeline(
     lora_dict: Optional[Dict[str, float]] = None,
     unet_overrides: Optional[Dict] = None,
     param_dtype: Optional[torch.dtype] = None,
-    flash_variant: str = "dmajor",
-    gn_kernel_sites: Sites = frozenset(),
-    ln_kernel_sites: Sites = frozenset({"vit"}),
+    flash_variant: str = DEFAULT_KERNELS.flash_variant,
+    gn_kernel_sites: Sites = DEFAULT_KERNELS.gn_kernel_sites,
+    ln_kernel_sites: Sites = DEFAULT_KERNELS.ln_kernel_sites,
 ) -> BuiltPipeline:
     """Build the streaming pipeline from a reference-style config dict or YAML.
 
@@ -216,8 +216,12 @@ def build_pipeline(
     it. Runs on the card unless ``device`` says otherwise.
 
     The last three arguments are the JAX package's kernel knobs, made per
-    pipeline (``ops/choices.py:KernelChoices``); their defaults are the JAX
-    defaults:
+    pipeline (``ops/choices.py:KernelChoices``), and default to
+    ``DEFAULT_KERNELS``: the JAX default for the flash kernel, every site
+    for the norm kernels, where the JAX package chooses none for GroupNorm
+    and ``vit`` for LayerNorm (``ops/choices.py`` says why). A norm call
+    takes its kernel only where its input allows (bf16 on the card, no
+    gradient through it, the kernel's shape conditions; ``ops/norm.py``):
 
     * ``flash_variant`` (``LIVE2DIFF_FLASH``): ``"dmajor"``, ``"smajor"`` or
       ``"int8"``, the flash kernel of the spatial self-attentions at
@@ -225,10 +229,10 @@ def build_pipeline(
       default ``--spatial-qk bf16`` is ``"dmajor"`` (``bench.py:218``).
     * ``gn_kernel_sites`` (``LIVE2DIFF_GN_TAGS``): the GroupNorm sites
       (``resnet``, ``attn_in``, ``motion_in``, ``midas``) that launch the
-      GroupNorm kernel, ``"all"`` or ``"none"``; none by default.
+      GroupNorm kernel, ``"all"`` (the default) or ``"none"``.
     * ``ln_kernel_sites`` (``LIVE2DIFF_LN_TAGS``): the LayerNorm sites
       (``spatial``, ``temporal``, ``vit``) that launch the LayerNorm kernel;
-      ``vit`` by default.
+      ``"all"`` by default.
     """
     param_dtype = param_dtype or dtype
     device = resolve_device(device)

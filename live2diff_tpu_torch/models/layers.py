@@ -127,11 +127,11 @@ class FusedGroupNorm(nn.Module):
     """GroupNorm over the trailing channel axis of ``[N, ..., C]`` with
     per-N fp32 statistics and an optional fused activation. ``site`` names
     the call site, as in the JAX package; ``kernels`` says whether the
-    GroupNorm kernel runs there. Weight and bias reach the norm in the
-    dtype they are stored in (``param_dtype``), as the JAX module hands
-    them over; the output is in the input's dtype. Cut to a slab of whole
-    groups (a sharded resnet's ``norm2``), it normalises the groups its
-    weight holds."""
+    GroupNorm kernel may run there (``ops/norm.py:gn_route``). Weight and
+    bias reach the norm in the dtype they are stored in (``param_dtype``),
+    as the JAX module hands them over; the output is in the input's dtype.
+    Cut to a slab of whole groups (a sharded resnet's ``norm2``), it
+    normalises the groups its weight holds."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
                  act: str = "none", site: str = "", kernels: KernelChoices = DEFAULT_KERNELS):

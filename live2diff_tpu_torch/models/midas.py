@@ -12,11 +12,10 @@ under ``scratch``), the keys ``live2diff_tpu/convert/midas.py`` maps from, so
 that checkpoint loads by name. The one exception is ``refinenet4``'s first
 residual unit, which the model never calls and so does not hold.
 
-The ViT's LayerNorms are ``site="vit"`` (the LayerNorm kernel on the card
-by default), its attention goes through
-``ops.attention.dot_product_attention`` (the flash kernel on the card); the
-GroupNorms are ``site="midas"`` (plain torch unless the pipeline's
-``KernelChoices`` names the site, as the JAX default leaves them) and every
+The ViT's LayerNorms are ``site="vit"`` and the GroupNorms ``site="midas"``
+(each norm's kernel on the card by default, where its input allows:
+``ops/norm.py``), its attention goes through
+``ops.attention.dot_product_attention`` (the flash kernel on the card); every
 convolution is ``F.conv2d``, as the JAX package leaves them to XLA.
 """
 

@@ -153,14 +153,20 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd needs a gradient through a call on ``tensors``:
+    grad mode is on and one of them (None aside) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def no_grad_through(what: str, *tensors) -> None:
-    """Raise where autograd would need a gradient through a launch: grad
-    mode is on and a tensor argument requires grad. A ctypes launch returns
-    tensors without a ``grad_fn``, so the gradient would be lost without a
-    word. Every kernel wrapper calls this before it launches; only
+    """Raise where autograd would need a gradient through a launch
+    (``needs_grad``). A ctypes launch returns tensors without a
+    ``grad_fn``, so the gradient would be lost without a word. Every kernel
+    wrapper calls this before it launches; only
     ``flash_train.FlashAttentionTrain`` has a backward, and it launches its
     kernels with grad mode off."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(
             f"{what}: the CUDA kernel has no backward, and a gradient is needed through it; "
             "run it under torch.no_grad(), or train in fp32 (the attention's training kernels)")

@@ -14,6 +14,19 @@ The port reads no environment variable. The same three choices are one
 ``KernelChoices`` value, handed to the model constructors, which give each
 attention and norm module its choice when it is built. Two pipelines in one
 process can therefore run different kernels.
+
+The port's flash default is the JAX package's; its norm defaults are not:
+both norm kernels may run at every site. A norm call still takes its
+kernel only where it can (``ops/norm.py:gn_route``, ``ln_route``: a bf16
+CUDA input, no gradient through the call, the kernel's shape conditions),
+so fp32 pipelines, training and CPU runs take the plain versions whatever
+the choice. On an H100 (80GB HBM3, 700 W) the plain norms' launches made up
+most of the 40-46 % of a stream call's device time that PyTorch's
+elementwise, reduction and small cuBLAS kernels took; with both kernels at
+every site a 512x512 step's UNet took 17.0 ms of device time where it took
+33.8, its kernels a frame fell from 6,293 to 3,072, and a camera stream
+returned 1.67x the frames. ``"none"`` or a collection of sites still
+chooses otherwise, for A/B runs.
 """
 
 from __future__ import annotations
@@ -50,12 +63,13 @@ class KernelChoices:
     ``flash_variant``: the flash kernel of the self-attentions that pass the
     JAX package's flash gate (``ops/attention.py:dot_product_attention``).
     ``gn_kernel_sites`` / ``ln_kernel_sites``: ``"all"``, ``"none"`` or a
-    collection of call-site names. The defaults are the JAX defaults.
+    collection of call-site names; ``"all"`` by default (the module's
+    docstring says why the port departs from the JAX defaults here).
     """
 
     flash_variant: str = "dmajor"
-    gn_kernel_sites: Sites = frozenset()
-    ln_kernel_sites: Sites = frozenset({"vit"})
+    gn_kernel_sites: Sites = "all"
+    ln_kernel_sites: Sites = "all"
 
     def __post_init__(self):
         if self.flash_variant not in FLASH_VARIANTS:

@@ -1,27 +1,37 @@
 """GroupNorm and LayerNorm with fp32 two-pass (centred) statistics.
 
 Port of ``live2diff_tpu/ops/norm.py``. Each call names its ``site``, and a
-``KernelChoices`` (``ops/choices.py``) says at which sites the kernel runs;
-the defaults are the JAX package's:
+``KernelChoices`` (``ops/choices.py``) says at which sites the kernel may
+run. The port's default is every site, where the JAX package's is none for
+GroupNorm (``_GN_TAGS = "none"``, ``norm.py:40``) and ``vit`` for LayerNorm
+(``_LN_TAGS = "vit"``, ``norm.py:56``): on an H100 the plain versions'
+eleven or twelve library launches a call (casts, broadcast arithmetic, two
+``mean`` reductions) made up most of the 40-46 % of a stream call's device
+time that PyTorch's elementwise and reduction kernels took, and each kernel
+does a call in one launch (``ops/choices.py`` gives the measured gain).
 
-* ``layer_norm`` launches the CUDA kernel (``csrc/layer_norm.cu``, replacing
-  the Pallas ``_layer_norm_kernel``) at the LayerNorm kernel sites, by
-  default ``vit``, the DPT's ViT tower (``_LN_TAGS = "vit"``, ``norm.py:56``),
-  where the JAX package's shape conditions hold (``norm.py:239-246``: ``C %
-  8 == 0`` and at least ``2^14`` elements). The UNet's ``spatial`` and
-  ``temporal`` sites run the plain version unless chosen.
-* ``group_norm_act`` launches the CUDA kernel (``csrc/group_norm.cu``,
-  replacing the Pallas ``_group_norm_kernel``) at the GroupNorm kernel sites
-  when the JAX package's conditions hold (``norm.py:140-147``: ``T*C <=
-  3*2^20``, ``C % groups == 0``, ``C % 8 == 0``) and ``C <= 16384``, the
-  widest row the kernel holds; wider calls, which the JAX package sends to
-  its kernel, run the plain version: the route differs, the function does
-  not. By default there are no such sites (``_GN_TAGS = "none"``,
-  ``norm.py:40``). ``group_norm_plan`` cuts a call into the kernel's tiles
-  and CTAs; ``gn_route_counts`` counts the launches whose tiles all stay in
-  shared memory (``resident``) and the others (``streamed``).
+Which implementation a call takes is decided from what the call can
+observe, by ``gn_route`` and ``ln_route`` (pure functions of the shape,
+dtype, device type, gradient need, site and choices):
 
-On CPU tensors every wrapper runs its plain version.
+* the kernel where x is a bf16 CUDA tensor, no gradient is needed through
+  the call, the pipeline's choices name the site and the shape conditions
+  hold: for ``group_norm_act`` (``csrc/group_norm.cu``, replacing the
+  Pallas ``_group_norm_kernel``) the JAX package's (``norm.py:140-147``:
+  ``T*C <= 3*2^20``, ``C % groups == 0``, ``C % 8 == 0``) and ``C <=
+  16384``, the widest row the kernel holds; for ``layer_norm``
+  (``csrc/layer_norm.cu``, replacing the Pallas ``_layer_norm_kernel``)
+  the JAX package's (``norm.py:239-246``: ``C % 8 == 0`` and at least
+  ``2^14`` elements) and ``C <= 10240``;
+* the plain version, the same function in PyTorch ops, everywhere else:
+  CPU tensors, fp32 pipelines, training with gradients, slabs over the
+  caps. The route differs, the function does not.
+
+``norm_route_counts`` counts the calls by norm and route where the route
+is decided, so a captured step's replays add nothing. ``group_norm_plan``
+cuts a kernel call into tiles and CTAs; ``gn_route_counts`` counts the
+launches whose tiles all stay in shared memory (``resident``) and the
+others (``streamed``).
 """
 
 from __future__ import annotations
@@ -59,6 +69,36 @@ GN_MIN_TILE_BYTES = 16384
 # GroupNorm launches by route: all of a CTA's tiles held in shared memory
 # (x read once), or streamed through its buffers and partly read again
 gn_route_counts: Dict[str, int] = {"resident": 0, "streamed": 0}
+# norm calls by norm and route (``gn_route``, ``ln_route``), counted where
+# the route is decided: at eager calls and at capture, never at a replay
+norm_route_counts: Dict[str, int] = {"gn_kernel": 0, "gn_plain": 0, "ln_kernel": 0,
+                                     "ln_plain": 0}
+
+
+def gn_route(t: int, c: int, groups: int, dtype: torch.dtype, device_type: str,
+             grad: bool, site: str, kernels: KernelChoices) -> str:
+    """``"gn_kernel"`` or ``"gn_plain"``: where ``group_norm_act`` sends a
+    call on x ``[B, t, c]`` (see the module's docstring)."""
+    if (
+        device_type == "cuda" and dtype == torch.bfloat16 and not grad
+        and kernels.gn_kernel_at(site) and t * c <= GN_MAX_ELEMS and c % groups == 0
+        and c % 8 == 0 and c <= GN_MAX_CHANNELS
+    ):
+        return "gn_kernel"
+    return "gn_plain"
+
+
+def ln_route(numel: int, c: int, dtype: torch.dtype, device_type: str, grad: bool,
+             site: str, kernels: KernelChoices) -> str:
+    """``"ln_kernel"`` or ``"ln_plain"``: where ``layer_norm`` sends a call
+    on x ``[..., c]`` of ``numel`` elements (see the module's docstring)."""
+    if (
+        device_type == "cuda" and dtype == torch.bfloat16 and not grad
+        and kernels.ln_kernel_at(site) and c % 8 == 0 and numel >= LN_MIN_ELEMS
+        and c <= LN_MAX_CHANNELS
+    ):
+        return "ln_kernel"
+    return "ln_plain"
 
 
 def group_norm_plain(
@@ -258,17 +298,16 @@ def group_norm_act(
     kernels: KernelChoices = DEFAULT_KERNELS,
 ) -> torch.Tensor:
     """GroupNorm over [B, T, C] with per-B fp32 statistics, optional
-    SiLU/ReLU: the kernel at the GroupNorm kernel sites where the JAX
-    package's conditions hold and C fits the kernel (C <= GN_MAX_CHANNELS),
-    the plain version elsewhere. Decided from the shape before any launch.
-    gamma and beta may be stored in another dtype than x (``param_dtype``):
-    the plain version applies them in fp32 as they are, the kernel, which
-    takes them in x's dtype, after a cast."""
+    SiLU/ReLU: the kernel where ``gn_route`` says so, the plain version
+    elsewhere; decided before any launch. gamma and beta may be stored in
+    another dtype than x (``param_dtype``): the plain version applies them
+    in fp32 as they are, the kernel, which takes them in x's dtype, after a
+    cast."""
     _, t, c = x.shape
-    if (
-        kernels.gn_kernel_at(site) and t * c <= GN_MAX_ELEMS and c % groups == 0
-        and c % 8 == 0 and c <= GN_MAX_CHANNELS
-    ):
+    grad = _build.needs_grad(x, gamma, beta)
+    route = gn_route(t, c, groups, x.dtype, x.device.type, grad, site, kernels)
+    norm_route_counts[route] += 1
+    if route == "gn_kernel":
         gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
         return group_norm(*map(_aligned, (x, gamma, beta)), groups, eps, act)
     return group_norm_plain(x, gamma, beta, groups, eps, act)
@@ -336,11 +375,13 @@ def layer_norm(
     kernels: KernelChoices = DEFAULT_KERNELS,
 ) -> torch.Tensor:
     """LayerNorm over the trailing axis, fp32 centred statistics, per row:
-    the kernel at the LayerNorm kernel sites where the JAX package's shape
-    conditions hold (C % 8 == 0, at least 2^14 elements), the plain version
-    elsewhere. gamma and beta in another dtype than x: as ``group_norm_act``."""
+    the kernel where ``ln_route`` says so, the plain version elsewhere.
+    gamma and beta in another dtype than x: as ``group_norm_act``."""
     c = x.shape[-1]
-    if not (kernels.ln_kernel_at(site) and c % 8 == 0 and x.numel() >= LN_MIN_ELEMS):
+    grad = _build.needs_grad(x, gamma, beta)
+    route = ln_route(x.numel(), c, x.dtype, x.device.type, grad, site, kernels)
+    norm_route_counts[route] += 1
+    if route == "ln_plain":
         return layer_norm_plain(x, gamma, beta, eps)
     gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
     return layer_norm_rows(x.reshape(-1, c).contiguous(), gamma, beta, eps).reshape(x.shape)

@@ -349,6 +349,15 @@ class Recorder:
 RECORDER = Recorder()
 
 
+def with_norm_routes(summary: dict) -> dict:
+    """``summary`` with the process's norm calls by route
+    (``ops/norm.py:norm_route_counts``) among its counters."""
+    from ..ops.norm import norm_route_counts
+
+    summary["counters"]["norm_routes"] = dict(norm_route_counts)
+    return summary
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """``torch.profiler`` over the block, CPU and (where there is a card)

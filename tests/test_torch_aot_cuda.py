@@ -90,3 +90,23 @@ def test_a_primed_dir_warm_starts_bit_equal_and_a_tampered_one_is_kept(dev, tmp_
     assert sorted(p.name for p in (tampered / "aot" / key).iterdir()) == sorted(
         p.name for p in path.iterdir())
     assert _build._LIBS == libs
+
+
+def test_a_dir_primed_without_the_group_norm_library_still_loads(dev, tmp_path):
+    """A directory primed when no GroupNorm ran on its kernel holds no
+    ``group_norm`` library: it still warm-starts (``aot_hit``), its
+    validating step builds or loads ``group_norm`` at first use, and the
+    first frame equals a cold start's."""
+    engines = tmp_path / "engines"
+    cold = _wrapper(dev, engines)
+    cold_frame = _first_frame(cold)
+    assert cold.prime_aot()
+    path = engines / "aot" / aot.engine_key(dev)
+    manifest = json.loads((path / aot.MANIFEST).read_text())
+    (path / manifest["files"].pop("group_norm")["file"]).unlink()
+    (path / aot.MANIFEST).write_text(json.dumps(manifest))
+    with _build._LOCK:
+        _build._LIBS.pop("group_norm")  # as a fresh process has it
+    warm = _wrapper(dev, engines)
+    assert warm.aot_hit is True and "group_norm" in _build.loaded()
+    np.testing.assert_array_equal(_first_frame(warm), cold_frame)

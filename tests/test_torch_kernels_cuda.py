@@ -54,8 +54,9 @@ from live2diff_tpu_torch.ops.flash_attention import (
 )
 from live2diff_tpu_torch.ops.choices import KernelChoices
 from live2diff_tpu_torch.ops.norm import (
-    gn_device_limits, gn_route_counts, group_norm, group_norm_act, group_norm_plain,
-    group_norm_plan, layer_norm, layer_norm_plain, layer_norm_rows,
+    GN_MAX_CHANNELS, GN_MAX_ELEMS, LN_MAX_CHANNELS, LN_MIN_ELEMS, gn_device_limits,
+    gn_route_counts, group_norm, group_norm_act, group_norm_plain, group_norm_plan, layer_norm,
+    layer_norm_plain, layer_norm_rows, norm_route_counts,
 )
 from live2diff_tpu_torch.ops.stream_attention import (
     stream_window_attention_bf16, stream_window_attention_int8, stream_window_attention_plain,
@@ -414,8 +415,11 @@ def test_layer_norm_matches_plain(dev, rows, c):
     gated = x.numel() >= 1 << 14
     assert _rel(layer_norm(x, g, b, 1e-6, site="vit"), ref) < LN_TOL
     assert _build.launch_counts["layer_norm"] == before + 1 + gated
-    layer_norm(x, g, b, 1e-6, site="spatial")  # the UNet sites stay plain by default
-    assert _build.launch_counts["layer_norm"] == before + 1 + gated
+    layer_norm(x, g, b, 1e-6, site="spatial")  # every site by default
+    assert _build.launch_counts["layer_norm"] == before + 1 + 2 * gated
+    none = KernelChoices(ln_kernel_sites="none")
+    assert _rel(layer_norm(x, g, b, 1e-6, site="spatial", kernels=none), ref) < LN_TOL
+    assert _build.launch_counts["layer_norm"] == before + 1 + 2 * gated
 
 
 def test_layer_norm_at_the_unet_sites_build_pipeline_chooses(dev):
@@ -736,3 +740,119 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = torch.ones(16392, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # C > GN_MAX_CHANNELS: group_norm_act's gate sends it plain
         group_norm(torch.zeros(1, 4, 16392, device=dev, dtype=torch.bfloat16), g, g, 8)
+
+
+# ---------------------------------------------------------------------------
+# the norms' routes in whole pipelines, built with the defaults
+# ---------------------------------------------------------------------------
+
+NARROW_UNET = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=2,
+                   cross_attention_dim=64, norm_num_groups=8, motion_num_attention_heads=2)
+PIPELINE_CONFIG = {"num_inference_steps": 50, "t_index_list": [30, 40]}
+
+
+def _norm_hooks(models):
+    """Forward pre-hooks on every FusedGroupNorm and FusedLayerNorm of
+    ``models``, counting their calls by norm and by whether the call's
+    shape meets its kernel's conditions (written out here, apart from the
+    route functions). Returns (counts, remove)."""
+    from live2diff_tpu_torch.models.layers import FusedGroupNorm, FusedLayerNorm
+    from live2diff_tpu_torch.models.resnet import InflatedGroupNorm
+
+    counts, sites = Counter(), Counter()
+
+    def gn_hook(mod, args):
+        x = args[0]
+        c = x.shape[-1]
+        n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
+        t = x.numel() // (n * c)
+        groups = mod.num_groups * mod.weight.numel() // mod.channels
+        fits = t * c <= GN_MAX_ELEMS and c % groups == 0 and c % 8 == 0 and c <= GN_MAX_CHANNELS
+        counts["gn_kernel" if fits else "gn_plain"] += 1
+        sites[mod.site] += fits
+
+    def ln_hook(mod, args):
+        x = args[0]
+        c = x.shape[-1]
+        fits = c % 8 == 0 and x.numel() >= LN_MIN_ELEMS and c <= LN_MAX_CHANNELS
+        counts["ln_kernel" if fits else "ln_plain"] += 1
+        sites[mod.site] += fits
+
+    handles = []
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, FusedGroupNorm):
+                handles.append(m.register_forward_pre_hook(gn_hook))
+            elif isinstance(m, FusedLayerNorm):
+                handles.append(m.register_forward_pre_hook(ln_hook))
+    return counts, sites, lambda: [h.remove() for h in handles]
+
+
+def _routes_since(before):
+    return {k: v - before[k] for k, v in norm_route_counts.items()}
+
+
+def test_default_pipeline_routes_every_norm_of_its_captured_step_to_the_kernels(dev):
+    """A bf16 pipeline built with the defaults (narrow UNet, the DPT):
+    capturing its step routes every GroupNorm and LayerNorm call whose shape
+    the kernels take to them (the route counter against hooks on the
+    modules), at every site, one launch each; the others run plain."""
+    from live2diff_tpu_torch.builder import build_pipeline
+
+    built = build_pipeline(PIPELINE_CONFIG, 256, 256, dtype=torch.bfloat16,
+                           kv_cache_dtype="int8", output_uint8=True, seed=0, device=dev,
+                           unet_overrides=NARROW_UNET, use_depth=True)
+    stream = built.stream
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randn(1, 77, 64, generator=gen, device=dev)
+    warm = torch.rand(8, 256, 256, 3, generator=gen, device=dev) * 2 - 1
+    state, _ = stream.prepare(warm, prompt, seed=2)
+    stream.warm_frame_step(torch.uint8)
+    counts, sites, remove = _norm_hooks([built.unet, built.depth_model])
+    before = dict(norm_route_counts)
+    _build.reset_launch_counts()
+    try:
+        stream.capture_step(state, torch.uint8)  # one step's calls, recorded
+    finally:
+        remove()
+    routes = _routes_since(before)
+    assert routes == {k: counts[k] for k in routes}, (routes, counts)
+    assert set(sites) == {"resnet", "attn_in", "motion_in", "midas", "spatial", "temporal",
+                          "vit"} and all(sites.values()), sites
+    assert _build.launch_counts["group_norm"] == routes["gn_kernel"]
+    assert _build.launch_counts["layer_norm"] == routes["ln_kernel"]
+    frame = torch.randint(0, 256, (256, 256, 3), generator=gen, device=dev, dtype=torch.uint8)
+    _, out = stream(state, frame)  # replays: nothing more is routed
+    torch.cuda.synchronize()
+    assert _routes_since(before) == routes and out.dtype == torch.uint8
+
+
+def test_fp32_pipeline_and_a_trainer_step_launch_no_norm_kernel(dev):
+    """An fp32 pipeline built with the defaults (its UNet in clip mode and
+    its DPT, as training and depth labelling run them) and one tiny
+    ``Trainer`` step (fp32, with gradients) route every norm call plain:
+    no norm kernel launches and nothing raises."""
+    from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.train import Trainer, TrainerConfig
+
+    built = build_pipeline(PIPELINE_CONFIG, 256, 256, dtype=torch.float32,
+                           kv_cache_dtype="int8", seed=0, device=dev,
+                           unet_overrides=NARROW_UNET, use_depth=True)
+    unet = built.unet
+    gen = torch.Generator(device=dev).manual_seed(1)
+    latents = torch.randn(1, 4, 32, 32, 4, generator=gen, device=dev)
+    text = torch.randn(1, 77, 64, generator=gen, device=dev)
+    caches = tuple(latents.new_zeros((0,)) for _ in range(unet.config.num_caches()))
+    before = dict(norm_route_counts)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        pred, _ = unet(latents, torch.tensor([500], device=dev), text, latents, caches, "clip")
+        depth = built.depth_model(torch.rand(1, 384, 384, 3, generator=gen, device=dev))
+    trainer = Trainer(TrainerConfig(tiny=True, steps=1, log_every=0), device=str(dev))
+    loss = trainer.train_step(next(iter(trainer.batches())))
+    torch.cuda.synchronize()
+    routes = _routes_since(before)
+    assert routes["gn_kernel"] == routes["ln_kernel"] == 0, routes
+    assert routes["gn_plain"] and routes["ln_plain"], routes
+    assert _build.launch_counts["group_norm"] == _build.launch_counts["layer_norm"] == 0
+    assert torch.isfinite(pred).all() and torch.isfinite(depth).all() and loss == loss

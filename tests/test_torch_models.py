@@ -227,7 +227,9 @@ def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypa
     site on, its Pallas kernels in interpret mode. In warmup mode only the
     flash and GroupNorm kernels fire; the port's dispatch is counted: the
     int8 variant takes exactly the top level's 5 self-attentions, and every
-    GroupNorm launches its kernel. Tolerance 5e-3 relative: the two sides
+    GroupNorm's route takes its kernel for the same call in bf16 on the
+    card (this fp32 CPU call runs the plain version, the same function).
+    Tolerance 5e-3 relative: the two sides
     reach the attention with fp32 inputs that differ in the last bits, so
     an int8 code of Q or K may round the other way at a .5 boundary (one
     step, 1/127 of its group's range); that measured 4.7e-4 on the output
@@ -235,23 +237,30 @@ def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypa
     monkeypatch.setattr(jattn_ops, "_BACKEND", "tpu")
     monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
     monkeypatch.setenv("LIVE2DIFF_FLASH", "int8")
-    flash_calls, gn_calls = [], []
-    real_flash, real_gn = tattn_ops.flash_self_attention_int8, tnorm.group_norm
+    flash_calls = []
+    real_flash = tattn_ops.flash_self_attention_int8
     monkeypatch.setattr(tattn_ops, "flash_self_attention_int8",
                         lambda *a, **kw: (flash_calls.append(tuple(a[0].shape)),
                                           real_flash(*a, **kw))[1])
-    monkeypatch.setattr(tnorm, "group_norm",
-                        lambda *a, **kw: (gn_calls.append(1), real_gn(*a, **kw))[1])
 
     unet, params = jax_unet(seed=8)
     tunet = UNet3DConditionModel(UNetConfig(**TINY_UNET),
                                  KernelChoices(flash_variant="int8", gn_kernel_sites="all"))
     tunet.load_state_dict(params_from_jax(params), strict=True)
     tunet.eval()
-    norms = []
+    norms = []  # the route of each GroupNorm call, were it bf16 on the card
+
+    def on_card(mod, args):
+        x = args[0]
+        c = x.shape[-1]
+        n = x.shape[0] * x.shape[1] if isinstance(mod, tres.InflatedGroupNorm) else x.shape[0]
+        norms.append(tnorm.gn_route(x.numel() // (n * c), c, mod.num_groups, torch.bfloat16,
+                                    "cuda", False, mod.site, mod.kernels))
+
     for m in tunet.modules():
         if isinstance(m, tl.FusedGroupNorm):
-            m.register_forward_pre_hook(lambda mod, args: norms.append(1))
+            m.register_forward_pre_hook(on_card)
+    before = dict(tnorm.norm_route_counts)
 
     lat, frames = 32, 2
     cfg = JaxUNetConfig(**TINY_UNET)
@@ -270,7 +279,8 @@ def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypa
     # 2 down and 3 up spatial transformers at the 32x32 level, frames folded
     # into the batch: [B * F, heads, S, dim_head]
     assert flash_calls == [(frames, 2, lat * lat, 4)] * 5
-    assert len(gn_calls) == len(norms) > 0
+    assert norms and set(norms) == {"gn_kernel"}
+    assert tnorm.norm_route_counts["gn_plain"] - before["gn_plain"] == len(norms)
     assert rel_err(out.numpy(), ref) < 5e-3
     for a, b in zip(caches_to_np(tc), caches_to_np(jc)):
         assert rel_err(a, b) < 5e-3

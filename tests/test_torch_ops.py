@@ -36,6 +36,7 @@ from live2diff_tpu.ops.stream_attention import (
     stream_window_attention_kernel, stream_window_attention_kernel_int8,
 )
 from live2diff_tpu_torch.models.motion import _quantize_kv
+from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops import attention as tattn
 from live2diff_tpu_torch.ops import norm as tnorm
 from live2diff_tpu_torch.ops.choices import KernelChoices
@@ -185,7 +186,8 @@ def test_stream_attention_plan_takes_misaligned_caches_by_elements():
 
 # The JAX gate (live2diff_tpu/ops/norm.py:239-246) sends a LayerNorm to its
 # kernel only with C % 8 == 0 and at least 2^14 elements, at a chosen site;
-# the port's layer_norm sends the same calls to its kernel wrapper.
+# the port's route sends the same calls to its kernel when they are bf16 on
+# the card (this fp32 CPU call itself runs the plain version).
 @pytest.mark.parametrize("rows,c,site,taken", [
     (64, 320, "spatial", True),      # 20480 elements: the kernel
     (13, 1280, "spatial", True),     # 16640 elements at the UNet's widest C
@@ -208,9 +210,11 @@ def test_layer_norm_gate_matches_jax(monkeypatch, rows, c, site, taken):
     g, b = (1 + 0.1 * rs.randn(c)).astype(np.float32), (0.1 * rs.randn(c)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         ref = jnorm.layer_norm(*map(jnp.asarray, (x, g, b)), eps=1e-5, site=site)
-    out = tnorm.layer_norm(T(x), T(g), T(b), eps=1e-5, site=site,
-                           kernels=KernelChoices(ln_kernel_sites={"spatial"}))
-    assert len(jax_calls) == len(port_calls) == int(taken)
+    kernels = KernelChoices(ln_kernel_sites={"spatial"})
+    out = tnorm.layer_norm(T(x), T(g), T(b), eps=1e-5, site=site, kernels=kernels)
+    on_card = tnorm.ln_route(x.size, c, torch.bfloat16, "cuda", False, site, kernels)
+    assert len(jax_calls) == int(taken)
+    assert on_card == ("ln_kernel" if taken else "ln_plain") and port_calls == []
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
@@ -451,26 +455,26 @@ def test_flash_variant_gate(monkeypatch, shape_q, shape_k, taken):
 @pytest.mark.parametrize("b,t,c,act", [(2, 64, 320, "silu"), (3, 128, 64, "relu"),
                                        (2, 96, 1280, "none")])
 def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
-    """The port's group_norm_act at a GroupNorm kernel site == the JAX
-    group_norm_act dispatched to the Pallas kernel (interpret mode), with
-    JAX's site gate lifted; both dispatches are shown to take the kernel."""
+    """The port's GroupNorm kernel wrapper (on the CPU its plain version) ==
+    the JAX group_norm_act dispatched to the Pallas kernel (interpret mode),
+    with JAX's site gate lifted; the JAX dispatch is shown to take the
+    kernel, and the port's route to take its kernel on a bf16 card call."""
     monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
     monkeypatch.setattr(jattn, "_BACKEND", "tpu")
-    jax_calls, port_calls = [], []
-    real_j, real_t = jnorm._group_norm_kernel, tnorm.group_norm
+    jax_calls = []
+    real_j = jnorm._group_norm_kernel
     monkeypatch.setattr(jnorm, "_group_norm_kernel",
                         lambda *a, **kw: (jax_calls.append(1), real_j(*a, **kw))[1])
-    monkeypatch.setattr(tnorm, "group_norm",
-                        lambda *a, **kw: (port_calls.append(1), real_t(*a, **kw))[1])
     rs = np.random.RandomState(16)
     x = (rs.randn(b, t, c) * 3 + 1).astype(np.float32)
     g, bt = rs.randn(c).astype(np.float32), rs.randn(c).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         ref = jnorm.group_norm_act(*map(jnp.asarray, (x, g, bt)), groups=32, eps=1e-5, act=act,
                                    site="resnet")
-    out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=32, eps=1e-5, act=act, site="resnet",
-                               kernels=KernelChoices(gn_kernel_sites="all"))
-    assert jax_calls == [1] and port_calls == [1]
+    out = tnorm.group_norm(T(x), T(g), T(bt), groups=32, eps=1e-5, act=act)
+    assert jax_calls == [1]
+    assert tnorm.gn_route(t, c, 32, torch.bfloat16, "cuda", False, "resnet",
+                          KernelChoices(gn_kernel_sites="all")) == "gn_kernel"
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
@@ -479,7 +483,7 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
     pytest.param({"resnet"}, "resnet", 64, 320, True, 4, id="sites1-resnet-64-320-True"),
     # site not chosen
     pytest.param({"resnet"}, "attn_in", 64, 320, False, 4, id="sites2-attn_in-64-320-False"),
-    # the default: no site
+    # no site chosen ("none")
     pytest.param(frozenset(), "resnet", 64, 320, False, 4, id="sites3-resnet-64-320-False"),
     # T * C > 3 * 2^20
     pytest.param("all", "resnet", 4096, 960, False, 4, id="all-resnet-4096-960-False"),
@@ -491,17 +495,20 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
     pytest.param("all", "resnet", 64, 16392, False, 8, id="all-resnet-64-16392-False-8"),
 ])
 def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups):
-    """The kernel runs where the JAX package's conditions hold
-    (norm.py:140-147), C fits the kernel and the pipeline names the site."""
+    """A bf16 card call takes the kernel where the JAX package's conditions
+    hold (norm.py:140-147), C fits the kernel and the pipeline names the
+    site; this fp32 CPU call runs the plain version whatever the site."""
     calls = []
     real = tnorm.group_norm
     monkeypatch.setattr(tnorm, "group_norm",
                         lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
     rs = np.random.RandomState(17)
     x = T(rs.randn(1, t, c).astype(np.float32))
+    kernels = KernelChoices(gn_kernel_sites=sites)
     out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=groups, act="silu",
-                               site=site, kernels=KernelChoices(gn_kernel_sites=sites))
-    assert len(calls) == int(taken)
+                               site=site, kernels=kernels)
+    on_card = tnorm.gn_route(t, c, groups, torch.bfloat16, "cuda", False, site, kernels)
+    assert on_card == ("gn_kernel" if taken else "gn_plain") and calls == []
     torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c),
                                                            groups, 1e-5, "silu"))
 
@@ -516,28 +523,28 @@ def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups)
     (16, 36, 4, False),        # C % 8 != 0
 ])
 def test_group_norm_gate_matches_jax(monkeypatch, t, c, groups, jax_takes):
-    """group_norm_act sends a call to its kernel wherever the JAX package
-    sends it to the Pallas kernel (norm.py:140-147, run in interpret mode)
-    and the row fits the kernel; past GN_MAX_CHANNELS the route differs but
-    the result does not."""
+    """The port's route sends a bf16 card call to its kernel wherever the
+    JAX package sends it to the Pallas kernel (norm.py:140-147, run in
+    interpret mode) and the row fits the kernel; past GN_MAX_CHANNELS the
+    route differs but the result (here the CPU's plain version) does not."""
     monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
     monkeypatch.setattr(jattn, "_BACKEND", "tpu")
-    jax_calls, port_calls = [], []
-    real_j, real_t = jnorm._group_norm_kernel, tnorm.group_norm
+    jax_calls = []
+    real_j = jnorm._group_norm_kernel
     monkeypatch.setattr(jnorm, "_group_norm_kernel",
                         lambda *a, **kw: (jax_calls.append(1), real_j(*a, **kw))[1])
-    monkeypatch.setattr(tnorm, "group_norm",
-                        lambda *a, **kw: (port_calls.append(1), real_t(*a, **kw))[1])
     rs = np.random.RandomState(19)
     x = (rs.randn(1, t, c) * 3 + 1).astype(np.float32)
     g, bt = (1 + 0.1 * rs.randn(c)).astype(np.float32), (0.1 * rs.randn(c)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         ref = jnorm.group_norm_act(*map(jnp.asarray, (x, g, bt)), groups=groups, eps=1e-5,
                                    act="silu", site="resnet")
+    kernels = KernelChoices(gn_kernel_sites="all")
     out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=groups, eps=1e-5, act="silu",
-                               site="resnet", kernels=KernelChoices(gn_kernel_sites="all"))
+                               site="resnet", kernels=kernels)
+    on_card = tnorm.gn_route(t, c, groups, torch.bfloat16, "cuda", False, "resnet", kernels)
     assert len(jax_calls) == int(jax_takes)
-    assert len(port_calls) == int(jax_takes and c <= tnorm.GN_MAX_CHANNELS)
+    assert (on_card == "gn_kernel") == (jax_takes and c <= tnorm.GN_MAX_CHANNELS)
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
@@ -591,8 +598,8 @@ def test_group_norm_plan(b, t, c, groups):
 
 
 def test_kernel_choices_validate():
-    assert KernelChoices().gn_kernel_sites == frozenset()
-    assert KernelChoices().ln_kernel_at("vit") and not KernelChoices().ln_kernel_at("spatial")
+    assert KernelChoices().gn_kernel_sites == "all"
+    assert KernelChoices().ln_kernel_at("vit") and KernelChoices().ln_kernel_at("spatial")
     assert KernelChoices(gn_kernel_sites="all").gn_kernel_at("midas")
     assert not KernelChoices(ln_kernel_sites="none").ln_kernel_at("vit")
     with pytest.raises(ValueError):
@@ -601,3 +608,80 @@ def test_kernel_choices_validate():
         KernelChoices(gn_kernel_sites={"resnt"})
     with pytest.raises(TypeError):
         KernelChoices(gn_kernel_sites="resnet")
+
+
+ALL, NONE = KernelChoices(), KernelChoices(gn_kernel_sites="none", ln_kernel_sites="none")
+BF16, F32 = torch.bfloat16, torch.float32
+# the LayerNorm calls of a 512x512 stream step ([..., C] as (elements, C)):
+# the UNet's spatial and temporal sites at each latent level, the DPT's ViT
+LN_STEP_SHAPES = [(2 * 4096 * 320, 320), (2 * 1024 * 640, 640), (2 * 256 * 1280, 1280),
+                  (2 * 64 * 1280, 1280), (577 * 768, 768)]
+
+
+def _gn_case(t, c, dtype=BF16, device="cuda", grad=False, site="resnet", kernels=ALL,
+             kernel=True, groups=32):
+    return ("gn", (t, c, groups), dtype, device, grad, site, kernels, kernel)
+
+
+def _ln_case(numel, c, dtype=BF16, device="cuda", grad=False, site="spatial", kernels=ALL,
+             kernel=True):
+    return ("ln", (numel, c), dtype, device, grad, site, kernels, kernel)
+
+
+@pytest.mark.parametrize("norm,shape,dtype,device,grad,site,kernels,kernel", [
+    # a bf16 card call with no gradient takes the kernel at every site by default
+    *[pytest.param(*_gn_case(4096, 320, site=s), id=f"gn-{s}") for s in sorted(
+        ["resnet", "attn_in", "motion_in", "midas"])],
+    *[pytest.param(*_ln_case(2 * 4096 * 320, 320, site=s), id=f"ln-{s}") for s in sorted(
+        ["spatial", "temporal", "vit"])],
+    # and at every shape of a 512x512 stream step that the kernels take
+    *[pytest.param(*_gn_case(t, c), id=f"gn-step-{b}x{t}x{c}") for b, t, c in GN_STEP_SHAPES],
+    *[pytest.param(*_ln_case(n, c), id=f"ln-step-{n}x{c}") for n, c in LN_STEP_SHAPES],
+    # the UNet's top up-block input, over the JAX cap on T * C: plain
+    pytest.param(*_gn_case(4096, 960, kernel=False), id="gn-step-over-cap"),
+    # prepare's 8 warmup frames in one slab: over the cap
+    pytest.param(*_gn_case(8 * 4096, 320, kernel=False), id="gn-8-frame-slab"),
+    # fp32 pipelines, fp16, training with a gradient, the CPU, "none" chosen
+    pytest.param(*_gn_case(4096, 320, dtype=F32, kernel=False), id="gn-fp32"),
+    pytest.param(*_ln_case(2 * 4096 * 320, 320, dtype=F32, kernel=False), id="ln-fp32"),
+    pytest.param(*_gn_case(4096, 320, dtype=torch.float16, kernel=False), id="gn-fp16"),
+    pytest.param(*_gn_case(4096, 320, grad=True, kernel=False), id="gn-grad"),
+    pytest.param(*_ln_case(2 * 4096 * 320, 320, grad=True, kernel=False), id="ln-grad"),
+    pytest.param(*_gn_case(4096, 320, device="cpu", kernel=False), id="gn-cpu"),
+    pytest.param(*_ln_case(2 * 4096 * 320, 320, device="cpu", kernel=False), id="ln-cpu"),
+    pytest.param(*_gn_case(4096, 320, kernels=NONE, kernel=False), id="gn-none"),
+    pytest.param(*_ln_case(577 * 768, 768, site="vit", kernels=NONE, kernel=False),
+                 id="ln-none"),
+    # the LayerNorm's shape conditions: too few elements, C % 8, too wide
+    pytest.param(*_ln_case(2 * 64 * 64, 64, kernel=False), id="ln-small"),
+    pytest.param(*_ln_case(256 * 68, 68, kernel=False), id="ln-c-not-8"),
+    pytest.param(*_ln_case(4 * 10248, 10248, kernel=False), id="ln-too-wide"),
+])
+def test_norm_route(norm, shape, dtype, device, grad, site, kernels, kernel):
+    """``gn_route`` and ``ln_route``: the kernel for a bf16 CUDA call with
+    no gradient through it, at a chosen site, where the shape conditions
+    hold; the plain version for every other call."""
+    if norm == "gn":
+        route = tnorm.gn_route(*shape, dtype, device, grad, site, kernels)
+    else:
+        route = tnorm.ln_route(*shape, dtype, device, grad, site, kernels)
+    assert route == f"{norm}_{'kernel' if kernel else 'plain'}"
+
+
+def test_norm_calls_count_their_route_and_keep_the_gradient():
+    """A CPU call counts a plain route; a call that needs a gradient (the
+    trainer's) is plain and differentiable; under no_grad none is needed."""
+    rs = np.random.RandomState(20)
+    x = T(rs.randn(2, 64, 32).astype(np.float32)).requires_grad_(True)
+    g, b = torch.ones(32, requires_grad=True), torch.zeros(32)
+    before = dict(tnorm.norm_route_counts)
+    y = tnorm.group_norm_act(x, g, b, groups=4, act="silu", site="resnet")
+    z = tnorm.layer_norm(y, g, b, site="spatial")
+    z.square().sum().backward()
+    assert x.grad is not None and g.grad is not None and torch.isfinite(x.grad).all()
+    after = tnorm.norm_route_counts
+    assert {k: after[k] - before[k] for k in after} == {
+        "gn_kernel": 0, "gn_plain": 1, "ln_kernel": 0, "ln_plain": 1}
+    assert _build.needs_grad(x, b) and not _build.needs_grad(b, None)
+    with torch.no_grad():
+        assert not _build.needs_grad(x, g)

@@ -293,6 +293,20 @@ def test_img2img_records_one_call_a_frame_with_its_children(wrapper):
         s["spans"]["wrapper.img2img"]["ema_ms"] / 1e3)
 
 
+def test_trace_summary_counts_the_norm_routes(wrapper):
+    """``trace_summary()`` reports the process's norm calls by route: a CPU
+    frame adds its GroupNorm and LayerNorm calls to the plain routes and
+    none to the kernels'."""
+    frames = _frames(WARMUP_FRAMES + 1, seed=8)
+    wrapper.prepare("x", frames[:WARMUP_FRAMES])
+    before = wrapper.trace_summary()["counters"]["norm_routes"]
+    wrapper(frames[-1])
+    after = wrapper.trace_summary()["counters"]["norm_routes"]
+    grew = {k: after[k] - before[k] for k in after}
+    assert grew["gn_kernel"] == grew["ln_kernel"] == 0
+    assert grew["gn_plain"] > 0 and grew["ln_plain"] > 0
+
+
 def test_multistream_rounds_record_their_calls(wrapper):
     multi = MultiStream(wrapper.stream, 2, prompt_len=77)
     warm = torch.from_numpy(np.stack([_frames(WARMUP_FRAMES, seed=s) for s in (5, 6)]))
