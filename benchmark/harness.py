@@ -1,10 +1,13 @@
 """One run of one cell: set-up, the timed window, the trace, the check.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
-its configuration file, its traffic file (``workloads/<traffic>.json``),
-its check file (``checks/<cell>.json``: how many outputs are compared and
-the limit of each number) and each per-layer metric's reader
-(``metrics/<name>.py``, a ``read(ctx)`` that returns a number or None).
+its configuration file, the configuration's reference module where the
+file names one (``"reference": "<file>.py"``, under ``reference/``: its
+models, their codec and their work counts; see ``reference/stream.py``),
+its traffic file (``workloads/<traffic>.json``), its check file
+(``checks/<cell>.json``: how many outputs are compared and the limit of
+each number) and each per-layer metric's reader (``metrics/<name>.py``, a
+``read(ctx)`` that returns a number or None).
 
 The system under test is ``live2diff_tpu_torch``, driven through the
 entries the demo server drives: ``StreamV2VWrapper.img2img`` for one
@@ -64,6 +67,15 @@ class Cell:
         return len(self.cfg["t_index_list"]) - 1
 
 
+def reference_file(bench: Path, name: str) -> Path:
+    """The reference module a configuration names: a ``.py`` file directly
+    under the benchmark's ``reference/`` folder."""
+    path = bench / "reference" / name
+    if Path(name).name != name or path.suffix != ".py" or not path.is_file():
+        raise ValueError(f"reference {name!r}: expected the name of a .py file in {path.parent}")
+    return path
+
+
 def find_cell(root: Path, name: str) -> tuple:
     """(the cell, BENCHMARK.json) of the cell ``name`` under ``root``."""
     spec = load_json(root / "BENCHMARK.json")
@@ -73,7 +85,10 @@ def find_cell(root: Path, name: str) -> tuple:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json: "
                        f"{[w['name'] for w in spec['workloads']]}")
     config = next(c for c in spec["configs"] if c["name"] == entry["config"])
-    cell = Cell(name=name, cfg=load_json(root / config["file"]),
+    cfg = load_json(root / config["file"])
+    if "reference" in cfg:
+        cfg["reference"] = str(reference_file(bench, cfg["reference"]))
+    cell = Cell(name=name, cfg=cfg,
                 traffic=load_json(bench / "workloads" / f"{entry['traffic']}.json"),
                 check=load_json(bench / "checks" / f"{name}.json"), bench=bench)
     return cell, spec

@@ -22,7 +22,7 @@ Layout: channels last, video ``[B, F, H, W, C]``, as the program's.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -608,6 +608,14 @@ class TAESD(nn.Module):
         self.encoder = TinyEncoder(cfg["latent_channels"], cfg["hidden"], cfg["encoder_blocks"])
         self.decoder = TinyDecoder(cfg["latent_channels"], cfg["hidden"])
 
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Images ``[N, H, W, 3]`` in [-1, 1] -> latents ``[N, H/8, W/8, 4]``:
+        TAESD's latents are in the UNet's scale already."""
+        return self.encoder(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
 
 # ---------------------------------------------------------------------------
 # DPT-hybrid
@@ -793,3 +801,13 @@ class DPT(nn.Module):
         h = resize(h, h.shape[1] * 2, h.shape[2] * 2)
         h = torch.relu(out[2](h))
         return torch.relu(out[4](h))[..., 0]
+
+
+def models(cfg: dict) -> Dict[str, nn.Module]:
+    """The stream's models as the configuration gives them: the UNet, TAESD
+    and, with depth, the DPT-hybrid. A configuration's own reference module
+    (``stream.reference_module``) defines the same function."""
+    out = {"unet": UNet(cfg["unet"]), "vae": TAESD(cfg["taesd"])}
+    if cfg["use_depth"]:
+        out["depth"] = DPT(cfg["dpt"])
+    return out

@@ -11,9 +11,18 @@ Follows the configuration's semantics, not the program's code paths:
 * the window bookkeeping of the streaming KV cache (sink slots never
   evicted, the rest filled, then recycled by positional index);
 * per frame: the depth map (DPT at 384x384, min-max normalised over the
-  call's frames), one TAESD encode of frame and depth image, noise at the
-  first timestep, the UNet over the step rows, the LCM consistency step,
-  re-noising of the in-flight rows, and the TAESD decode to uint8.
+  call's frames), one encode of frame and depth image, noise at the first
+  timestep, the UNet over the step rows, the LCM consistency step,
+  re-noising of the in-flight rows, and the decode to uint8.
+
+The models come from the configuration's reference module: the file that
+its ``"reference"`` key names under this folder, or ``models.py`` (the
+UNet, TAESD and the DPT-hybrid) where it names none. The module's
+``models(cfg)`` returns ``{"unet", "vae"[, "depth"]}``; the stream reaches
+the codec only through ``vae.encode(images) -> latents`` and
+``vae.decode(latents) -> images`` (channels last, images in [-1, 1],
+latents in the UNet's scale), so a codec keeps its own mean, quant convs
+and scaling inside them.
 
 Noise comes from a ``torch.Generator`` seeded as the program's stream is,
 drawn in the same shapes and order, so both see the same numbers on one
@@ -22,12 +31,16 @@ device.
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .models import DPT, TAESD, Cache, UNet, level_dims, resize
+from . import models as default_models
+from .models import Cache, level_dims, resize
 
 
 def lcm_schedule(cfg: dict) -> Dict[str, np.ndarray]:
@@ -84,15 +97,31 @@ def to_uint8(img: torch.Tensor) -> torch.Tensor:
     return torch.round((img.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
 
 
+def reference_module(cfg: dict) -> ModuleType:
+    """The module that holds the configuration's models: the file that its
+    ``"reference"`` key names (a path, or a file name under this folder),
+    loaded by path as a member of this package, so that it builds on
+    ``models.py``'s plain ops (``from . import models``) and the control's
+    ``models.set_low`` reaches its products; ``models.py`` without the key."""
+    name = cfg.get("reference")
+    if name is None:
+        return default_models
+    path = Path(name)
+    if not path.is_absolute():
+        path = Path(__file__).resolve().parent / path
+    spec = importlib.util.spec_from_file_location(f"{__package__}.{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def build(cfg: dict, device) -> Dict[str, torch.nn.Module]:
     """The configuration's models, fp32, on ``device``, their parameters
     left unset (``{"unet", "vae"[, "depth"]}``): fill them by name."""
     with torch.device("meta"):
-        models = {"unet": UNet(cfg["unet"]), "vae": TAESD(cfg["taesd"])}
-        if cfg["use_depth"]:
-            models["depth"] = DPT(cfg["dpt"])
+        made = reference_module(cfg).models(cfg)
     return {k: m.to_empty(device=device).eval().requires_grad_(False)
-            for k, m in models.items()}
+            for k, m in made.items()}
 
 
 def shapes(cfg: dict) -> List[Tuple[str, str, Tuple[int, ...]]]:
@@ -149,14 +178,14 @@ class RefStream:
         f = frames.shape[0]
         if self.depth is not None:
             frames = torch.cat([frames, self._depth_image(frames)], dim=0)
-        lat = self.vae.encoder(frames)
+        lat = self.vae.encode(frames)
         latents = lat[:f]
         depth = lat[f:] if self.depth is not None else torch.zeros_like(latents)
         eps = self._randn((f, self.lh, self.lw, 4))
         return self.alpha[0] * latents + self.beta[0] * eps, depth
 
     def _decode(self, x0: torch.Tensor) -> torch.Tensor:
-        return to_uint8(self.vae.decoder(x0))
+        return to_uint8(self.vae.decode(x0))
 
     @torch.no_grad()
     def prepare(self, warm_uint8: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import sys
@@ -28,6 +29,93 @@ TINY_DPT = dict(image_size=64, patch_grid=4, vit_hidden=32, vit_layers=2, vit_he
                 stage_channels=[128, 256, 512], reassemble_channels=32, features=32)
 
 
+# Each shipped configuration's parameters, (model, name, shape) in the order
+# the weights are drawn, and each cell's work counts: (model FLOPs a call,
+# digest of the flash and the stream attention calls). Frozen, since the
+# same seed must keep giving every cell the same weights, reference frames
+# and readings.
+SHAPES = {
+    "sd15-live2diff-demo":
+        (1716, "4d7214ecdce27ffa4806f1f50001dcc9eab1059dfbcf1324a9748a94ad44b0bd"),
+    "sd15-live2diff-toonyou":
+        (1716, "4d7214ecdce27ffa4806f1f50001dcc9eab1059dfbcf1324a9748a94ad44b0bd"),
+}
+WORK = {
+    "demo-512-1stream":
+        (2872027942912.0, "cd6e6baeee053070d12d784d18dc6a30e3ca2884c272372e246508c7211e0f5d"),
+    "toonyou-512-1stream":
+        (5099190259712.0, "6fcd4633cfa422df8a511ddd24b68bbf7ee30883c23bcff6462c4442aa18e6ae"),
+    "demo-512-4sessions":
+        (11477200027648.0, "3d2abdc03e5715ee2e9329ee86e29f76cea0c3cc4c63e89f069359d2b827491a"),
+    "demo-768x512-1stream":
+        (4359343149056.0, "93c2932b3571532b8865b8436e6cc0713b022e7663d9073029a172bdb3c761c8"),
+}
+
+# a configuration's own reference module: a small codec with a one-head
+# attention, a mean of moments, quant convs and a latent scale inside its
+# encode and decode, and the work counts of its own models
+OWN_CODEC = '''
+import torch
+from torch import nn
+
+from . import models as base
+
+SCALE = 0.18215
+
+
+class Codec(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        hid, lat = c["hidden"], c["latent_channels"]
+        self.down = nn.ModuleList([base.Conv(cin, hid, 3, stride=2, padding=1)
+                                   for cin in (3, hid, hid)])
+        self.qkv = base.Lin(hid, 3 * hid)
+        self.moments = base.Conv(hid, 2 * lat, 3, padding=1)
+        self.quant_conv = base.Conv(2 * lat, 2 * lat, 1)
+        self.post_quant_conv = base.Conv(lat, lat, 1)
+        self.conv_in = base.Conv(lat, hid, 3, padding=1)
+        self.conv_out = base.Conv(hid, 3, 3, padding=1)
+
+    def encode(self, x):
+        for conv in self.down:
+            x = torch.relu(conv(x))
+        q, k, v = self.qkv(x.reshape(x.shape[0], -1, x.shape[-1])).chunk(3, dim=-1)
+        x = x + base.attention(q[:, :, None], k[:, :, None], v[:, :, None]).reshape(x.shape)
+        mean, _ = self.quant_conv(self.moments(x)).chunk(2, dim=-1)
+        return mean * SCALE
+
+    def decode(self, z):
+        x = torch.relu(self.conv_in(self.post_quant_conv(z / SCALE)))
+        return self.conv_out(x.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2))
+
+
+def models(cfg):
+    return {"unet": base.UNet(cfg["unet"]), "vae": Codec(cfg["codec"])}
+
+
+def codec_flops(cfg, height, width, encodes, decodes):
+    hid, lat = cfg["codec"]["hidden"], cfg["codec"]["latent_channels"]
+    h, w = height // 8, width // 8
+    enc = sum(2 * cin * hid * 9 * (height >> i) * (width >> i)
+              for i, cin in ((1, 3), (2, hid), (3, hid)))
+    enc += 2 * h * w * hid * 3 * hid + 4 * (h * w) ** 2 * hid
+    enc += 2 * hid * 2 * lat * 9 * h * w + 2 * (2 * lat) ** 2 * h * w
+    dec = 2 * lat * lat * h * w + 2 * lat * hid * 9 * h * w + 2 * hid * 3 * 9 * height * width
+    return float(encodes * enc + decodes * dec)
+
+
+def flash_attention_calls(cfg, traffic):
+    n = (2 if cfg["use_depth"] else 1) * traffic["sessions"]
+    s = (traffic["height"] // 8) * (traffic["width"] // 8)
+    c = cfg["codec"]["hidden"]
+    return [(4.0 * n * s * s * c, 4.0 * n * s * c * 2)]
+'''
+
+
+def digest(obj) -> str:
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+
 def counted(fn) -> int:
     with FlopCounterMode(display=False) as counter:
         fn()
@@ -40,6 +128,42 @@ def filled(cfg):
         for p in m.parameters():
             torch.nn.init.normal_(p, 0.0, 0.05)
     return modules
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_shipped_configurations_keep_their_parameters(name):
+    spec = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    entry = next(c for c in spec["configs"] if c["name"] == name)
+    shapes = ref_stream.shapes(json.loads((BENCH.parent / entry["file"]).read_text()))
+    assert (len(shapes), digest(shapes)) == SHAPES[name]
+
+
+@pytest.mark.parametrize("cell", sorted(WORK))
+def test_shipped_cells_keep_their_work_counts(cell):
+    found, _ = harness.find_cell(BENCH.parent, cell)
+    cfg, traffic = found.cfg, found.traffic
+    calls = [work.flash_attention_calls(cfg, traffic), work.stream_attention_calls(cfg, traffic)]
+    assert (work.model_flops(cfg, traffic), digest(calls)) == WORK[cell]
+
+
+def test_a_configuration_module_brings_its_own_work_counts(tmp_path):
+    """A configuration naming its own reference module: the model FLOPs
+    count the module's codec as a counter does over its encode and decode,
+    its attention call is added to the flash calls, and the stream calls,
+    which it does not report, stay the UNet's."""
+    path = tmp_path / "own_codec.py"
+    path.write_text(OWN_CODEC)
+    plain = bench_tiny_cell.tiny_config()
+    cfg = dict(plain, reference=str(path), codec={"hidden": 16, "latent_channels": 4})
+    traffic = {"sessions": 1, "height": 32, "width": 48}
+    vae = filled(cfg)["vae"]
+    enc = counted(lambda: vae.encode(torch.rand(1, 32, 48, 3)))
+    dec = counted(lambda: vae.decode(torch.rand(1, 4, 6, 4)))
+    rows = len(cfg["t_index_list"])
+    assert work.model_flops(cfg, traffic) == work.unet_flops(cfg["unet"], 4, 6, rows) + enc + dec
+    assert work.flash_attention_calls(cfg, traffic) == (
+        work.flash_attention_calls(plain, traffic) + [(4.0 * 24 * 24 * 16, 4.0 * 24 * 16 * 2)])
+    assert work.stream_attention_calls(cfg, traffic) == work.stream_attention_calls(plain, traffic)
 
 
 @pytest.mark.parametrize("rows,hw", [(2, (16, 16)), (4, (16, 24))])

@@ -5,7 +5,9 @@ without a card."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +81,52 @@ def test_sessions_rehearsal(tmp_path):
     result = run(root)
     assert result["correct"] and result["attempted"] % 2 == 0
     assert result["check"]["frame_rms_max"]["value"] < 0.5
+
+
+# a configuration's reference module whose codec negates the decoded image
+FLIPPED = '''
+from . import models as base
+
+
+class FlippedTAESD(base.TAESD):
+    def decode(self, z):
+        return -super().decode(z)
+
+
+def models(cfg):
+    out = base.models(cfg)
+    out["vae"] = FlippedTAESD(cfg["taesd"])
+    return out
+'''
+
+
+@pytest.mark.parametrize("module", ["copy", "flipped"])
+def test_a_configuration_names_its_reference_module(tmp_path, module):
+    """The tiny configuration names a reference module added as a new file
+    under reference/: the weight fill, the reference and the check take
+    its models. A copy of models.py reproduces the keyless reference's
+    frames bit for bit and passes; a module whose decode negates the image
+    reads incorrect."""
+    cfg = dict(bench_tiny_cell.tiny_config(), reference=f"{module}.py")
+    root = bench_tiny_cell.make_root(tmp_path, cfg, limit=demo_limit(), compare_calls=6)
+    ref_dir = root / "benchmark/reference"
+    if module == "copy":
+        shutil.copy(ref_dir / "models.py", ref_dir / "copy.py")
+    else:
+        (ref_dir / "flipped.py").write_text(FLIPPED)
+    h = harness_of(root)
+    cell, _ = h.find_cell(root, "tiny-64")
+    assert h.ref_stream.reference_module(cell.cfg).__file__ == str(ref_dir / f"{module}.py")
+    result = run(root)
+    assert result["failed"] == 0
+    assert result["correct"] == (module == "copy"), result["check"]
+    if module == "copy":
+        seed = 5
+        keyless = dataclasses.replace(cell, cfg=bench_tiny_cell.tiny_config())
+        inputs = (*h.frames(cell, seed, "cpu"), h.prompts(cell, seed, "cpu"))
+        hooked = h.reference_outputs(cell, seed, 4, "cpu", *inputs)
+        plain = h.reference_outputs(keyless, seed, 4, "cpu", *inputs)
+        assert all(torch.equal(a, b) for s in plain for a, b in zip(hooked[s], plain[s]))
 
 
 def test_same_seed_same_inputs(tmp_path):

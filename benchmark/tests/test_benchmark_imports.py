@@ -6,9 +6,12 @@ their top-level name, whole: ``live2diff_tpu_torch`` is not
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
@@ -36,6 +39,8 @@ import torch
 import bench_tiny_cell
 from reference import stream
 cfg = bench_tiny_cell.tiny_config()
+if {reference!r}:
+    cfg["reference"] = {reference!r}
 models = stream.build(cfg, "cpu")
 for m in models.values():
     for p in m.parameters():
@@ -61,8 +66,15 @@ def test_runner_loads_no_jax_and_no_jax_package():
     assert "live2diff_tpu_torch" in out["top"]  # the program under test, not its JAX twin
 
 
-def test_reference_loads_nothing_of_the_program():
-    top = set(loaded(REFERENCE.format(here=str(HERE), bench=str(BENCH))))
+@pytest.mark.parametrize("own_module", [False, True], ids=["models.py", "own_module"])
+def test_reference_loads_nothing_of_the_program(tmp_path, own_module):
+    """The default reference, and a configuration's own module (here a copy
+    of models.py named by the configuration)."""
+    reference = ""
+    if own_module:
+        reference = str(tmp_path / "own.py")
+        shutil.copy(BENCH / "reference/models.py", reference)
+    top = set(loaded(REFERENCE.format(here=str(HERE), bench=str(BENCH), reference=reference)))
     assert not (FORBIDDEN | {"live2diff_tpu_torch"}) & top
 
 

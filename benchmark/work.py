@@ -17,11 +17,20 @@ each call. The temporal attention of a stream step reads the whole
 The attention work counts are of the calls themselves, at the cell's
 shapes, whatever kernels serve them: FLOPs as above, bytes as each input
 read once and each output written once.
+
+A configuration that names its own reference module (``"reference"``, see
+``reference/stream.py``) brings its own counts there: the codec's FLOPs as
+``codec_flops(cfg, height, width, encodes, decodes)`` in place of TAESD's,
+and the attention calls of its own models as
+``flash_attention_calls(cfg, traffic)`` and
+``stream_attention_calls(cfg, traffic)``, added to the UNet's and the
+DPT's. A module that defines none of them is counted as ``models.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from types import ModuleType
+from typing import Dict, Iterator, List, Optional, Tuple
 
 BF16 = 2
 FP32 = 4
@@ -197,13 +206,31 @@ def taesd_flops(t: Dict, height: int, width: int, encodes: int, decodes: int) ->
     return encodes * enc + decodes * dec
 
 
+def own_module(cfg: Dict) -> Optional[ModuleType]:
+    """The configuration's own reference module, where it names one."""
+    if "reference" not in cfg:
+        return None
+    from reference.stream import reference_module
+
+    return reference_module(cfg)
+
+
+def own_calls(cfg: Dict, traffic: Dict, name: str) -> List[Tuple[float, float]]:
+    """The calls that the configuration's own module reports by ``name``."""
+    count = getattr(own_module(cfg), name, None)
+    return list(count(cfg, traffic)) if count is not None else []
+
+
 def model_flops(cfg: Dict, traffic: Dict) -> float:
     """Model FLOPs of one call of the entry (S frames)."""
     s = traffic["sessions"]
     h, w = traffic["height"], traffic["width"]
     rows = s * len(cfg["t_index_list"])
     f = unet_flops(cfg["unet"], h // 8, w // 8, rows, cfg["prompt_shape"][1])
-    f += taesd_flops(cfg["taesd"], h, w, (2 if cfg["use_depth"] else 1) * s, s)
+    encodes = (2 if cfg["use_depth"] else 1) * s
+    codec = getattr(own_module(cfg), "codec_flops", None)
+    f += (codec(cfg, h, w, encodes, s) if codec is not None
+          else taesd_flops(cfg["taesd"], h, w, encodes, s))
     if cfg["use_depth"]:
         f += dpt_flops(cfg["dpt"], s)
     return f
@@ -219,7 +246,7 @@ def stream_attention_calls(cfg: Dict, traffic: Dict) -> List[Tuple[float, float]
     new frame's queries of every step row against the row's 16-slot
     window. Bytes: the queries and the output in bf16, K and V of the
     window at the cache dtype, with one fp32 scale a (slot, channel) for an
-    int8 cache."""
+    int8 cache. Then the calls of the configuration's own module."""
     u = cfg["unet"]
     rows = traffic["sessions"] * len(cfg["t_index_list"])
     dims = level_dims(traffic["height"] // 8, traffic["width"] // 8,
@@ -237,14 +264,15 @@ def stream_attention_calls(cfg: Dict, traffic: Dict) -> List[Tuple[float, float]
         if cfg["kv_cache_dtype"] == "int8":
             nbytes += 2 * rows * window * c * FP32
         out += [(flops, nbytes)] * n_attn
-    return out
+    return out + own_calls(cfg, traffic, "stream_attention_calls")
 
 
 def flash_attention_calls(cfg: Dict, traffic: Dict) -> List[Tuple[float, float]]:
     """(FLOPs, bytes) of each softmax attention over a whole sequence in one
     call: the UNet's spatial self- and cross-attentions over the step
     rows, and the DPT's ViT self-attentions, one image a session. Bytes: q,
-    k, v and the output in bf16."""
+    k, v and the output in bf16. Then the calls of the configuration's own
+    module."""
     u = cfg["unet"]
     s = traffic["sessions"]
     rows = s * len(cfg["t_index_list"])
@@ -263,7 +291,7 @@ def flash_attention_calls(cfg: Dict, traffic: Dict) -> List[Tuple[float, float]]
         tokens = d["patch_grid"] ** 2 + 1
         dim = d["vit_hidden"]
         out += [(attn(s, tokens, tokens, dim), 4 * s * tokens * dim * BF16)] * d["vit_layers"]
-    return out
+    return out + own_calls(cfg, traffic, "flash_attention_calls")
 
 
 def least_seconds(calls: List[Tuple[float, float]], flops_peak: float,
