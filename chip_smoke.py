@@ -2097,7 +2097,12 @@ def kl_phase(torch, _build, main_keep) -> dict:
     """Phase 13: phase 4's configuration with use_tiny_vae=False. The
     narrow pipeline on the card against fp32 on the CPU, the full-width
     stream (launches asserted, profiled), the codec's encode and decode
-    alone beside TAESD's, and the frame in turns with phase 4's."""
+    alone beside TAESD's, and the frame in turns with phase 4's. A check
+    that the codec builds, captures and runs; its measurement of record is
+    the benchmark's ``demo-kl-512-1stream`` cell (``BENCHMARK.json``:
+    frames a second and latency through ``StreamV2VWrapper``, the codec's
+    stages, ``codec_attn_ms``, and the frames held to
+    ``benchmark/reference/kl.py``)."""
     errs, depth_err, _ = small_input_check(torch, use_tiny_vae=False)
     kept = []
     result, counts = run_stream(torch, _build, KL_FRAMES, {**EXPECTED_PER_STEP, **NO_TAESD},

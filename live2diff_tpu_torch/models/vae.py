@@ -12,6 +12,9 @@ loads by name. No kernel of the JAX package sits under it: its convs are
 its one-head mid-block attention at D = 512 plain matmuls, with the JAX
 module's roundings: logits from a product in the compute dtype, cast to
 fp32 and scaled, an fp32 softmax, probabilities cast back.
+``codec_route_counts`` counts those GroupNorms and attentions where they
+run eagerly or are captured (a graph's replay runs no Python), as
+``ops/norm.py:norm_route_counts`` counts the norms that have kernels.
 
 TAESD's module indices follow the madebyollin/taesd ``nn.Sequential``
 numbering (``encoder.0``, ``encoder.1.conv.2``, ..., including the
@@ -26,7 +29,7 @@ them to XLA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,10 @@ from .layers import Linear, at_dtype
 from .resnet import conv_nhwc
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
+
+# the KL codec's fp32 GroupNorms and plain attentions, counted where they
+# run eagerly or are captured, never at a replay
+codec_route_counts: Dict[str, int] = {"kl_group_norm": 0, "kl_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +71,7 @@ class VAEGroupNorm(nn.GroupNorm):
         super().__init__(groups, channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        codec_route_counts["kl_group_norm"] += 1
         out = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
                            self.weight.float(), self.bias.float(), self.eps)
         return out.permute(0, 2, 3, 1).to(x.dtype)
@@ -101,6 +109,7 @@ class VAEAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        codec_route_counts["kl_attention"] += 1
         b, h, w, c = x.shape
         t = self.group_norm(x).reshape(b, h * w, c)
         q, k, v = self.to_q(t), self.to_k(t), self.to_v(t)

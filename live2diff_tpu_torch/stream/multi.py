@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.timing import RECORDER, with_norm_routes
+from ..utils.timing import RECORDER, with_routes
 from .graph import capture_graph, state_tensors
 from .pipeline import NoiseFn, Noises, StreamDiffusionDepth
 from .state import StreamState, cache_tensors
@@ -276,9 +276,9 @@ class MultiStream:
         """The recorder's read-out of this ``MultiStream``'s rounds
         (``utils/timing.py``: ``Recorder.summary``): per span and device
         stage count, median, p95, mean, std and EMA in ms, and the
-        counters, ``norm_routes`` among them."""
+        counters, ``norm_routes`` and ``codec_routes`` among them."""
         RECORDER.read_stages(self.owner)
-        return with_norm_routes(RECORDER.summary(self.owner))
+        return with_routes(RECORDER.summary(self.owner))
 
     @property
     def capture_s(self) -> Dict[str, float]:

@@ -45,7 +45,7 @@ import torch
 
 from ..models.midas import DPTDepthModel, resize_nhwc
 from ..models.unet import UNet3DConditionModel
-from ..models.vae import AutoencoderKL, TinyAutoencoder
+from ..models.vae import AutoencoderKL, TinyAutoencoder, VAEAttention
 from ..schedule import LCMSchedule
 from ..utils.timing import RECORDER, stage_events
 from .graph import StepGraphs
@@ -261,13 +261,28 @@ class StreamDiffusionDepth:
         records a new set of ``stage_events`` at its stage boundaries:
         before the depth model, before the encode, before the UNet, before
         the LCM step and the buffers, before the decode, and at its end.
+        With the KL codec, each of its attentions (``VAEAttention``: the
+        encode's, then the decode's) also records one event before and one
+        after, appended to the boundaries' (``utils/timing.py:CODEC_ATTN``).
         Yields the events, which the captured graph records at each replay.
         Outside it (eager steps, the warm step, the CPU) it records none."""
-        self._stage_events = stage_events(self.device)
+        attentions = [m for m in self.vae.modules() if isinstance(m, VAEAttention)]
+        events = stage_events(self.device)
+        hooks = []
+        if attentions:
+            pairs = stage_events(self.device, 2 * len(attentions))
+            marks = iter(pairs)
+            events = events + pairs
+            for m in attentions:
+                hooks.append(m.register_forward_pre_hook(lambda *_: next(marks).record()))
+                hooks.append(m.register_forward_hook(lambda *_: next(marks).record()))
+        self._stage_events = events
         try:
-            yield self._stage_events
+            yield events
         finally:
             self._stage_events = None
+            for h in hooks:
+                h.remove()
 
     def _mark(self, boundary: int) -> None:
         if self._stage_events is not None:

@@ -11,7 +11,9 @@ step (``stream/graph.py``, ``stream/pipeline.py``) record as they run:
   span opened outside any root records nothing.
 * device stages: the elapsed times between the CUDA events a captured step
   records at its stage boundaries (``STAGES``), read after the replay that
-  recorded them has completed, filed under the call that replayed it.
+  recorded them has completed, filed under the call that replayed it. A
+  step with the KL codec also records an event before and after each of
+  its attentions; their spans, summed, are the stage ``CODEC_ATTN``.
 * counters: plain integers (and seconds), by owner; 0 is the process.
 
 Spans and stages go into bounded rings, preallocated, so memory does not
@@ -46,6 +48,9 @@ from torch.profiler import record_function
 # the captured step's device stages, in the order the step runs them; the
 # step records len(STAGES) + 1 events, one at each boundary
 STAGES = ("device.depth", "device.encode", "device.unet", "device.scheduler", "device.decode")
+# the KL codec's attentions, inside the encode and decode stages: after the
+# boundary events a step records a (before, after) pair a call
+CODEC_ATTN = "device.codec_attn"
 
 CALLS = 4096  # calls the rings hold at least
 SPANS_A_CALL = 16  # room a call has in the span ring (a frame of the wrapper opens 9)
@@ -53,14 +58,13 @@ SPANS_A_CALL = 16  # room a call has in the span ring (a frame of the wrapper op
 _perf_ns = time.perf_counter_ns
 
 
-def stage_events(device) -> List["torch.cuda.Event"]:
-    """The ``len(STAGES) + 1`` timing events a captured step records at its
-    stage boundaries. ``external``: recorded during stream capture, each
+def stage_events(device, count: int = len(STAGES) + 1) -> List["torch.cuda.Event"]:
+    """``count`` timing events a captured step records: by default one at
+    each stage boundary. ``external``: recorded during stream capture, each
     becomes an event-record node of the graph, recorded again at every
     replay. Each is recorded once here, outside any capture, so that it
     exists before the capture records it."""
-    events = [torch.cuda.Event(enable_timing=True, external=True)
-              for _ in range(len(STAGES) + 1)]
+    events = [torch.cuda.Event(enable_timing=True, external=True) for _ in range(count)]
     with torch.cuda.device(device):
         for e in events:
             e.record()
@@ -75,7 +79,8 @@ class CallRecord:
     start_ns: int
     end_ns: int
     spans: Dict[str, int]  # name of a span below the root -> its ns in this call, summed
-    stages: Optional[Dict[str, float]]  # device stage -> ms, where read
+    # device stage (``STAGES``, and ``CODEC_ATTN`` where recorded) -> ms, where read
+    stages: Optional[Dict[str, float]]
 
     @property
     def ms(self) -> float:
@@ -84,7 +89,7 @@ class CallRecord:
     @property
     def device_ms(self) -> Optional[float]:
         """``step_device_ms``: first stage event to last."""
-        return None if self.stages is None else sum(self.stages.values())
+        return None if self.stages is None else sum(self.stages[k] for k in STAGES)
 
 
 def _libcuda() -> ctypes.CDLL:
@@ -104,22 +109,33 @@ _NOT_READY = 600  # CUDA_ERROR_NOT_READY
 
 
 def elapsed_ms(events: Sequence["torch.cuda.Event"]) -> Optional[List[float]]:
-    """ms from ``events[0]`` to each later event, or None where the last
-    one has not completed. Straight to ``libcuda`` (``cuEventElapsedTime`` on
-    the events' handles, which also says when an event is not complete):
-    less host time than ``torch.cuda.Event``'s ``query`` and
-    ``elapsed_time``."""
+    """ms from ``events[0]`` to each later event, or None where one has not
+    completed. Straight to ``libcuda`` (``cuEventElapsedTime`` on the
+    events' handles, which also says when an event is not complete): less
+    host time than ``torch.cuda.Event``'s ``query`` and ``elapsed_time``."""
     lib = _libcuda()
     first, *rest = [e.cuda_event for e in events]
     out, ms = ctypes.c_float(), []
-    for h in rest[::-1]:  # the last first: where it is not complete, none is read
+    for h in rest[::-1]:  # where one is not complete, none is read
         rc = lib.cuEventElapsedTime(ctypes.byref(out), first, h)
-        if rc == _NOT_READY and not ms:
+        if rc == _NOT_READY:
             return None
         if rc:
             raise RuntimeError(f"reading the stage events: CUresult {rc}")
         ms.append(out.value)
     return ms[::-1]
+
+
+def _stage_ms(at: List[float]) -> tuple:
+    """Each stage's ms from ``elapsed_ms``' times: the boundaries' steps,
+    then, where the step recorded attention pairs after them, the pairs'
+    spans summed (``CODEC_ATTN``)."""
+    n = len(STAGES)
+    ms = tuple(b - a for a, b in zip([0.0, *at[:n - 1]], at[:n]))
+    pairs = at[n:]
+    if pairs:
+        ms += (sum(b - a for a, b in zip(pairs[::2], pairs[1::2])),)
+    return ms
 
 
 class _Span:
@@ -239,7 +255,7 @@ class Recorder:
         if at is None:
             self.count("stage_reads_missed", owner)
             return
-        ms = tuple(b - a for a, b in zip([0.0, *at[:-1]], at))
+        ms = _stage_ms(at)
         self._stages[next(self._stage_seq) % self.stage_capacity] = (owner, call, ms)
 
     # -- reading ---------------------------------------------------------
@@ -292,7 +308,7 @@ class Recorder:
                 spans[name] = spans.get(name, 0) + ns
         for entry in self._stages:
             if entry is not None and entry[0] == owner and entry[1] in roots:
-                roots[entry[1]].stages = dict(zip(STAGES, entry[2]))
+                roots[entry[1]].stages = dict(zip(STAGES + (CODEC_ATTN,), entry[2]))
         return [roots[c] for c in sorted(roots)]
 
     def summary(self, owner: int) -> dict:
@@ -317,7 +333,7 @@ class Recorder:
         stages: Dict[str, List[tuple]] = {}
         for entry in self._stages:
             if entry is not None and entry[0] == owner:
-                for name, ms in zip(STAGES, entry[2]):
+                for name, ms in zip(STAGES + (CODEC_ATTN,), entry[2]):
                     stages.setdefault(name, []).append((entry[1], ms))
 
         def sample(pairs):
@@ -349,12 +365,15 @@ class Recorder:
 RECORDER = Recorder()
 
 
-def with_norm_routes(summary: dict) -> dict:
+def with_routes(summary: dict) -> dict:
     """``summary`` with the process's norm calls by route
-    (``ops/norm.py:norm_route_counts``) among its counters."""
+    (``ops/norm.py:norm_route_counts``) and the KL codec's GroupNorms and
+    attentions (``models/vae.py:codec_route_counts``) among its counters."""
+    from ..models.vae import codec_route_counts
     from ..ops.norm import norm_route_counts
 
     summary["counters"]["norm_routes"] = dict(norm_route_counts)
+    summary["counters"]["codec_routes"] = dict(codec_route_counts)
     return summary
 
 

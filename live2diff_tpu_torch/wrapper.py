@@ -42,7 +42,7 @@ from .builder import BuiltPipeline, build_pipeline, encode_prompt_for_pipeline
 from .convert.lora import lora_delta_state_dict
 from .utils.filter import SimilarImageFilter
 from .utils.image import postprocess_image, preprocess_image
-from .utils.timing import RECORDER, with_norm_routes
+from .utils.timing import RECORDER, with_routes
 
 WARMUP_FRAMES = 8
 
@@ -239,8 +239,9 @@ class StreamV2VWrapper:
         median, p95, mean, std (the first call left out) and EMA in ms; and
         the counters: ``calls``, ``filter_skips``, ``stage_reads_missed``,
         and the process's ``captures`` and ``kernel_loads`` with their
-        seconds and ``norm_routes`` (``ops/norm.py:norm_route_counts``)."""
-        return with_norm_routes(RECORDER.summary(self.owner))
+        seconds, ``norm_routes`` (``ops/norm.py:norm_route_counts``) and
+        ``codec_routes`` (``models/vae.py:codec_route_counts``)."""
+        return with_routes(RECORDER.summary(self.owner))
 
     def timing_summary(self) -> Dict[str, float]:
         """EMA, mean and std of a call's seconds (the first call left out)

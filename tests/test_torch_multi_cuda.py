@@ -10,7 +10,11 @@ generator). An idle session's generator is put back after a masked replay,
 so the session then draws what a session that never idled draws; a slot
 reseeded by ``prepare_session`` (``set_state`` on a generator the graphs
 hold) is seen by the next replay; and a round launches each kernel as many
-times as one single-session step. These need an NVIDIA Hopper GPU and
+times as one single-session step. With the KL codec, a captured step
+equals its eager twin, and its graph holds a pair of events around each of
+the codec's two attentions, which the recorder reads as
+``device.codec_attn``; ``codec_routes`` counts at the warm step and the
+capture, not at replays. These need an NVIDIA Hopper GPU and
 ``nvcc``; without a CUDA device each test skips. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_multi_cuda.py
@@ -171,3 +175,44 @@ def test_kl_codec_step_captured_equals_eager(dev):
         assert torch.equal(x, y)
     assert _build.launch_counts["conv3x3"] == _build.launch_counts["conv3x3_s2"] == 0
     assert _build.launch_counts["stream_attention_int8"]
+
+
+def test_kl_codec_capture_records_its_attention_events(dev):
+    """The captured KL step holds the 6 stage events and a (before, after)
+    pair around each of the codec's 2 attentions; each replay inside a
+    recorder call gives the stages with ``device.codec_attn`` after them,
+    shorter than the encode and decode it lies in and outside
+    ``step_device_ms``. ``codec_routes`` grows by 52 GroupNorms and 2
+    attentions at the eager warm step and again at the capture, and not
+    at the replays. A TAESD step's graph holds the 6 stage events only."""
+    from live2diff_tpu_torch.models.vae import codec_route_counts
+    from live2diff_tpu_torch.utils.timing import CODEC_ATTN, RECORDER, STAGES
+
+    stream = _stream(dev, use_tiny_vae=False)
+    prompts, warm, frames = _inputs(dev, 4, seed=5)
+    state, _ = stream.prepare(warm[0], prompts[0][None], seed=2)
+    before = dict(codec_route_counts)
+    state, _ = stream(state, frames[0, 0])  # the warm step, the capture, a replay
+    assert {k: codec_route_counts[k] - before[k] for k in before} == {
+        "kl_group_norm": 104, "kl_attention": 4}
+    (graph,) = stream._graphs.graphs
+    assert len(graph.events) == len(STAGES) + 1 + 4
+    counted = dict(codec_route_counts)
+    owner = RECORDER.owner()
+    for frame in frames[1:, 0]:
+        with RECORDER.root("test.call", owner):
+            state, _ = stream(state, frame)
+            torch.cuda.synchronize(dev)
+            RECORDER.read_stages(owner)
+    assert codec_route_counts == counted
+    calls = RECORDER.calls(owner)
+    assert len(calls) == 3
+    for c in calls:
+        assert list(c.stages) == [*STAGES, CODEC_ATTN]
+        assert 0 < c.stages[CODEC_ATTN] < c.stages["device.encode"] + c.stages["device.decode"]
+        assert c.device_ms == pytest.approx(sum(c.stages[k] for k in STAGES))
+    taesd = _stream(dev)
+    state, _ = taesd.prepare(warm[0], prompts[0][None], seed=2)
+    taesd(state, frames[0, 0])
+    assert [len(g.events) for g in taesd._graphs.graphs] == [len(STAGES) + 1]
+    assert codec_route_counts == counted

@@ -15,12 +15,21 @@ it, on the CPU.
 * The benchmark's five readers (``benchmark/metrics/``) on a synthetic
   recorder: the values computed by hand, and None with nothing recorded or
   without a recorder (a program that has none).
+* The KL codec (a narrow one in place of SD-1.5's): a marked step records a
+  (before, after) event pair around each of its two attentions, between
+  the encode's and the decode's boundaries, and its eager steps count 52
+  GroupNorms and 2 attentions in ``codec_routes``; a TAESD step makes no
+  such event and counts none; the recorder sums the pairs into
+  ``device.codec_attn``, outside ``step_device_ms``; and the two readers of
+  that stage, by hand and None where a call has no such stage.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
+import sys
 import types
 
 import numpy as np
@@ -31,11 +40,17 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from _torch_checkpoints import config_without_paths, write_checkpoints
 from live2diff_tpu_torch.stream.multi import MultiStream
 from live2diff_tpu_torch.utils import timing
-from live2diff_tpu_torch.utils.timing import STAGES, Recorder
+from live2diff_tpu_torch.utils.timing import CODEC_ATTN, STAGES, Recorder
 from live2diff_tpu_torch.wrapper import WARMUP_FRAMES, StreamV2VWrapper
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READERS = ("entry_host_ms", "call_idle_pct", "unet_ms", "depth_ms", "codec_ms")
+KL_READERS = ("codec_attn_ms", "codec_attn_roofline_pct")
+NARROW_VAE = dict(block_out_channels=(8, 8, 16, 16), norm_num_groups=4)
+# one frame step of the KL codec: the encode (4 levels of 2 resnets, the
+# mid block's 2 resnets and attention, the output norm) and the decode (the
+# mid block, 4 levels of 3 resnets, the output norm), 2 GroupNorms a resnet
+KL_STEP_ROUTES = {"kl_group_norm": (8 * 2 + 5 + 1) + (5 + 12 * 2 + 1), "kl_attention": 2}
 OVERRIDES = dict(block_out_channels=(8, 16, 16, 16), attention_head_dim=2,
                  cross_attention_dim=768, norm_num_groups=4, motion_num_attention_heads=2)
 H = W = 64
@@ -82,13 +97,19 @@ def clock(monkeypatch):
     return c
 
 
-def fake_events(stage_ms, done=True):
+def fake_events(stage_ms, done=True, attn_ms=None):
+    """The boundary events of ``stage_ms``; with ``attn_ms`` (the encode's
+    and the decode's attention), a pair for each, 0.25 ms into its stage."""
     at = np.concatenate([[5.0], 5.0 + np.cumsum(stage_ms)])
-    return [FakeEvent(float(t), done) for t in at]
+    events = [FakeEvent(float(t), done) for t in at]
+    for stage, ms in zip((1, 4), attn_ms or ()):
+        start = float(at[stage]) + 0.25
+        events += [FakeEvent(start, done), FakeEvent(start + ms, done)]
+    return events
 
 
 def wrapper_shaped_call(rec, owner, clock, host=(1.0, 0.5, 0.25, 0.5, 0.25), sync=20.0,
-                        stage_ms=None):
+                        stage_ms=None, attn_ms=None):
     """One call shaped as the wrapper's on the card: preprocess, stream.step
     (upload, replay, clone), sync, fetch, postprocess, with the given ms."""
     pre, upload, replay, fetch, post = host
@@ -101,7 +122,7 @@ def wrapper_shaped_call(rec, owner, clock, host=(1.0, 0.5, 0.25, 0.5, 0.25), syn
             with rec.span("stream.replay"):
                 clock.wait(replay)
             if stage_ms is not None:
-                rec.stages_pending(fake_events(stage_ms))
+                rec.stages_pending(fake_events(stage_ms, attn_ms=attn_ms))
             with rec.span("stream.clone"):
                 pass
         with rec.span("wrapper.sync"):
@@ -198,6 +219,26 @@ def test_stage_events_filed_under_the_call_that_replayed(clock):
     assert s["stages"]["device.unet"]["median_ms"] == pytest.approx(30.0)
     assert s["stages"]["device.unet"]["count"] == 1
     assert s["counters"]["stage_reads_missed"] == 1
+
+
+def test_codec_attention_pairs_are_one_stage_outside_the_steps_device_time(clock):
+    """Boundary events alone give exactly ``STAGES`` (a TAESD step's);
+    with a pair around each of the KL codec's attentions the pairs' spans,
+    summed, are ``device.codec_attn``, which ``device_ms`` leaves out (the
+    pairs lie inside the encode and decode stages)."""
+    rec = Recorder()
+    owner = rec.owner()
+    stage_ms = [4.0, 3.0, 30.0, 0.5, 2.5]
+    wrapper_shaped_call(rec, owner, clock, stage_ms=stage_ms)
+    wrapper_shaped_call(rec, owner, clock, stage_ms=stage_ms, attn_ms=[0.75, 0.5])
+    plain, kl = rec.calls(owner)
+    assert list(plain.stages) == list(STAGES)
+    assert list(kl.stages) == [*STAGES, CODEC_ATTN]
+    assert kl.stages[CODEC_ATTN] == pytest.approx(1.25)
+    assert kl.device_ms == pytest.approx(plain.device_ms) == pytest.approx(sum(stage_ms))
+    s = rec.summary(owner)
+    assert s["stages"][CODEC_ATTN]["count"] == 1 and s["stages"]["device.unet"]["count"] == 2
+    assert s["stages"][CODEC_ATTN]["median_ms"] == pytest.approx(1.25)
 
 
 def test_rings_stay_bounded_after_ten_times_their_capacity(clock):
@@ -380,6 +421,59 @@ def test_readers_return_none_with_nothing_recorded(monkeypatch, clock):
     assert {name: reader(name)(CTX) for name in READERS} == dict.fromkeys(READERS)
 
 
+def kl_context(cfg_name="sd15-live2diff-demo-kl", peaks=None):
+    """A reader's context over the shipped configuration ``cfg_name`` and
+    the 512x512 one-stream traffic, with the benchmark's work counts."""
+    bench = os.path.join(REPO, "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import work
+
+    with open(os.path.join(bench, "configs", f"{cfg_name}.json")) as f:
+        cfg = json.load(f)
+    traffic = dict(CTX.traffic, height=512, width=512)
+    return types.SimpleNamespace(traffic=traffic, cfg=cfg, peaks=peaks, work=work)
+
+
+PEAKS = {"bf16_flops": 1e15, "hbm_bytes": 1e12}
+
+
+def test_kl_readers_on_a_synthetic_recorder(monkeypatch, clock):
+    rec = Recorder()
+    owner = rec.owner()
+    # 2 set-up calls, 5 window calls, 1 + 3 traced calls
+    attn = [9.0, 9.0, 0.5, 0.75, 0.25, 1.0, 0.4, 9.0, 9.0, 9.0, 9.0]
+    for a in attn:
+        wrapper_shaped_call(rec, owner, clock, stage_ms=[4.0, 12.0, 20.0, 0.5, 20.0],
+                            attn_ms=[a, a])
+    monkeypatch.setattr(timing, "RECORDER", rec)
+    ctx = kl_context(peaks=PEAKS)
+    assert reader("codec_attn_ms")(ctx) == pytest.approx(1.0)  # median of 2 x 0.25..1.0
+    least = ctx.work.least_seconds(
+        ctx.work.own_calls(ctx.cfg, ctx.traffic, "codec_attention_calls"), 1e15, 1e12)
+    assert least > 0
+    assert reader("codec_attn_roofline_pct")(ctx) == pytest.approx(100.0 * least / 1e-3)
+    assert reader("codec_attn_roofline_pct")(kl_context()) is None  # no peaks off the card
+    # a TAESD configuration has no codec attention calls
+    assert reader("codec_attn_roofline_pct")(kl_context("sd15-live2diff-demo", PEAKS)) is None
+
+
+def test_kl_readers_return_none_without_the_stage(monkeypatch, clock):
+    ctx = kl_context(peaks=PEAKS)
+    monkeypatch.setattr(timing, "RECORDER", Recorder())
+    assert {name: reader(name)(ctx) for name in KL_READERS} == dict.fromkeys(KL_READERS)
+    # the stage events of a TAESD step, or of a program without the pairs
+    rec = Recorder()
+    owner = rec.owner()
+    for _ in range(8):
+        wrapper_shaped_call(rec, owner, clock, stage_ms=[1.0] * len(STAGES))
+    monkeypatch.setattr(timing, "RECORDER", rec)
+    assert reader("codec_ms")(ctx) == pytest.approx(2.0)
+    assert {name: reader(name)(ctx) for name in KL_READERS} == dict.fromkeys(KL_READERS)
+    monkeypatch.delattr(timing, "RECORDER")
+    assert {name: reader(name)(ctx) for name in KL_READERS} == dict.fromkeys(KL_READERS)
+
+
 def test_a_marked_step_records_each_stage_boundary_once_in_order(wrapper, monkeypatch):
     import live2diff_tpu_torch.stream.pipeline as pipeline
 
@@ -404,3 +498,99 @@ def test_a_marked_step_records_each_stage_boundary_once_in_order(wrapper, monkey
         stream._frame_step(state, torch.from_numpy(frames[-1]), stream._prompt_embeds)
     assert recorded == list(range(len(STAGES) + 1)) and len(events) == len(STAGES) + 1
     assert stream._stage_events is None
+
+
+# ---------------------------------------------------------------------------
+# the KL codec's events and counters
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def kl_wrapper():
+    """A CPU wrapper with the KL codec, narrowed (``builder.py``'s
+    ``VAEConfig()`` is SD-1.5's 83 M parameters)."""
+    import live2diff_tpu_torch.builder as builder
+    from live2diff_tpu_torch.models.vae import VAEConfig
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(builder, "VAEConfig", lambda: VAEConfig(**NARROW_VAE))
+        return StreamV2VWrapper({"num_inference_steps": 50, "t_index_list": [30, 40]},
+                                height=H, width=W, use_depth=False, use_tiny_vae=False,
+                                use_text_encoder=False, output_type="np", dtype="float32",
+                                unet_overrides=OVERRIDES, seed=3, device="cpu")
+
+
+class Marks:
+    """``stage_events`` of numbered marks: ``made`` the counts asked for,
+    ``recorded`` the numbers in the order recorded."""
+
+    def __init__(self):
+        self.made, self.recorded = [], []
+
+    def __call__(self, device, count=len(STAGES) + 1):
+        first = sum(self.made)
+        self.made.append(count)
+        return [types.SimpleNamespace(record=lambda k=k: self.recorded.append(k))
+                for k in range(first, first + count)]
+
+
+def test_a_marked_kl_step_brackets_each_codec_attention(kl_wrapper, monkeypatch):
+    """Boundaries 0-5 as a TAESD step records them, then the encode's
+    attention pair (6, 7) between boundaries 1 and 2 and the decode's (8, 9)
+    between 4 and 5; the hooks go with the block."""
+    import live2diff_tpu_torch.stream.pipeline as pipeline
+
+    marks = Marks()
+    monkeypatch.setattr(pipeline, "stage_events", marks)
+    frames = _frames(WARMUP_FRAMES + 1, seed=12)
+    kl_wrapper.prepare("x", frames[:WARMUP_FRAMES])
+    stream = kl_wrapper.stream
+    state = stream.init_state(seed=0)
+    frame = torch.from_numpy(frames[-1])
+    stream._frame_step(state, frame, stream._prompt_embeds)
+    assert marks.recorded == [] and marks.made == []
+    with stream.stage_marks() as events:
+        stream._frame_step(state, frame, stream._prompt_embeds)
+    assert marks.made == [len(STAGES) + 1, 4] and len(events) == len(STAGES) + 5
+    assert marks.recorded == [0, 1, 6, 7, 2, 3, 4, 8, 9, 5]
+    stream._frame_step(state, frame, stream._prompt_embeds)
+    assert len(marks.recorded) == 10 and stream._stage_events is None
+
+
+def test_a_marked_taesd_step_makes_no_codec_event(wrapper, monkeypatch):
+    import live2diff_tpu_torch.stream.pipeline as pipeline
+
+    marks = Marks()
+    monkeypatch.setattr(pipeline, "stage_events", marks)
+    frames = _frames(WARMUP_FRAMES + 1, seed=13)
+    wrapper.prepare("x", frames[:WARMUP_FRAMES])
+    stream = wrapper.stream
+    before = wrapper.trace_summary()["counters"]["codec_routes"]
+    with stream.stage_marks() as events:
+        stream._frame_step(stream.init_state(seed=0), torch.from_numpy(frames[-1]),
+                           stream._prompt_embeds)
+    assert marks.made == [len(STAGES) + 1] and len(events) == len(STAGES) + 1
+    assert marks.recorded == list(range(len(STAGES) + 1))
+    assert wrapper.trace_summary()["counters"]["codec_routes"] == before
+
+
+def test_codec_routes_count_each_eager_kl_step(kl_wrapper):
+    """``trace_summary()`` reports the KL codec's fp32 GroupNorms and plain
+    attentions: 52 and 2 a frame step on the CPU (every step is eager
+    here), and twice as many for ``prepare``: the warmup, whose 8 frames go
+    through one encode and one decode, and the eager warm step."""
+    frames = _frames(WARMUP_FRAMES + 2, seed=14)
+
+    def routes():
+        return kl_wrapper.trace_summary()["counters"]["codec_routes"]
+
+    before = routes()
+    kl_wrapper.prepare("x", frames[:WARMUP_FRAMES])
+    after_prepare = routes()
+    for f in frames[WARMUP_FRAMES:]:
+        kl_wrapper(f)
+    after = routes()
+    twice = {k: 2 * v for k, v in KL_STEP_ROUTES.items()}
+    assert {k: after_prepare[k] - before[k] for k in before} == twice
+    assert {k: after[k] - after_prepare[k] for k in before} == twice
+    assert "norm_routes" in kl_wrapper.trace_summary()["counters"]
