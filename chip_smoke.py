@@ -30,11 +30,10 @@ Phases, each printed as it ends; any failure exits non-zero:
    then streamed frames, timed and profiled; every kernel's launches in
    ``prepare`` and per stream step are asserted (stream attention's by
    route too: on a 132-SM card 40 on TMA, 30 of them in clusters; the
-   GroupNorm and LayerNorm kernels, at every site by default, 132 and 132
-   a step, 212 and 240 in prepare, one launch for each call routed to
-   them, counted by hooks on the modules and by the route counter; the
-   step's one plain norm call is the UNet's GroupNorm at [2, 4096, 960],
-   over the JAX cap on T * C), and the profiled launches a step may not
+   GroupNorm and LayerNorm kernels, at every site by default, 133 and 132
+   a step, 214 and 240 in prepare, one launch for each call routed to
+   them, counted by hooks on the modules and by the route counter; no
+   norm call of the step runs plain), and the profiled launches a step may not
    exceed 3,949. In every phase that streams at full width the norms'
    launches are held to the calls the hooks see routed to the kernels. The
    stream step is a
@@ -50,7 +49,7 @@ Phases, each printed as it ends; any failure exits non-zero:
 5. bf16 cache: the same at full width with a bf16 KV cache and no depth
    model (``--kv-cache bf16 --no-depth``): ``prepare`` and 8 frames,
    profiled, with the bf16 stream-attention kernel's launches asserted
-   (and the UNet's norms: 80 GroupNorm, 108 LayerNorm launches a step).
+   (and the UNet's norms: 81 GroupNorm, 108 LayerNorm launches a step).
 6. int8 QK: phase 4 with ``flash_variant="int8"`` (bench.py's
    ``--spatial-qk int8``): 32 frames, profiled; the int8-QK flash kernel
    takes the 10 self-attentions a step that pass the flash gate.
@@ -119,9 +118,14 @@ Phases, each printed as it ends; any failure exits non-zero:
    with the KL codec on the card (bf16) against fp32 on the CPU, as phase 3;
    then ``prepare`` and 16 frames at full width, profiled, with stream
    attention, flash and LayerNorm launched as in phase 4 and no TAESD conv
-   kernel; the codec's encode (frame and depth image) and decode alone
-   beside TAESD's, its share of the frame, peak memory, and 16 frames in
-   turns with phase 4's pipeline.
+   kernel, and every one of the codec's 52 GroupNorms a step on the
+   GroupNorm kernel (hooks and ``codec_route_counts``); the codec's encode
+   (frame and depth image) and decode alone beside TAESD's, its share of
+   the frame, peak memory, and 16 frames in turns with phase 4's pipeline.
+   Last, the GroupNorm kernel against its plain version at every shape the
+   codec gave it, resident or streamed as its plan says, timed (calls a
+   KL step and in prepare, ms, bound, plain ms), in the kernels line's
+   ``group_norm`` entry.
 14. MultiStream: phase 4's pipeline (TAESD, depth, int8 cache) at S = 2 and
    S = 4 sessions, both graphs captured when each ``MultiStream`` is built
    (its two eager warm rounds and two captures launch four single steps'
@@ -241,8 +245,9 @@ Phases, each printed as it ends; any failure exits non-zero:
    from the same inputs, every uint8 output and the latents each step
    leaves within their limits (``PARAM_DTYPE_RMS_TOL``,
    ``PARAM_DTYPE_LATENT_TOL``, relative RMS) of the twin's, the same
-   hand-kernel launches a step, the twin's kernels a step within 3,949 (the
-   profile); prints each one's relative RMS, kernels and device ms a step,
+   hand-kernel launches a step but the GroupNorm kernel's (the
+   fp32-parameter GroupNorms run plain), the twin's kernels a step within
+   3,949 (the profile); prints each one's relative RMS, kernels and device ms a step,
    parameter bytes and peak memory. Last, the control: the fp32-parameter
    pipeline with one UNet GroupNorm bias dropped, 20 frames again, whose
    latents must cross their limit.
@@ -367,14 +372,14 @@ OPT_IN_OFF = {"flash_attention_smajor": 0, "flash_attention_int8": 0,
               "flash_train_fwd": 0, "flash_train_bwd": 0}
 # the norm kernels run at every site by default, where a call's input allows
 # (ops/norm.py:gn_route, ln_route): a main-path step's 133 GroupNorms (81 in
-# the UNet, 52 in the DPT) but the UNet's [2, 4096, 960], over the JAX cap on
-# T * C, and its 132 LayerNorms (108 in the UNet, 24 in the ViT); prepare's
-# two UNet forwards and one DPT forward, 212 and 240. run_stream counts them
-# by hooks in every phase; phase 4 holds the hooks to these numbers
-MAIN_PATH_NORMS_PER_STEP = {"group_norm": 132, "layer_norm": 132}
-MAIN_PATH_NORMS_PREPARE = {"group_norm": 212, "layer_norm": 240}
+# the UNet, 52 in the DPT) and its 132 LayerNorms (108 in the UNet, 24 in the
+# ViT); prepare's two UNet forwards and one DPT forward, 214 and 240.
+# run_stream counts them by hooks in every phase; phase 4 holds the hooks to
+# these numbers
+MAIN_PATH_NORMS_PER_STEP = {"group_norm": 133, "layer_norm": 132}
+MAIN_PATH_NORMS_PREPARE = {"group_norm": 214, "layer_norm": 240}
 # the norm calls of a main-path step that run plain: [B, T, C] of each
-MAIN_PATH_PLAIN_GN = [(2, 4096, 960)]
+MAIN_PATH_PLAIN_GN = []
 # launches per stream step with depth: flash 32 in the UNet + 12 in the ViT;
 # the one batched encode of frame and depth image keeps the conv counts
 EXPECTED_PER_STEP = {"stream_attention_int8": 40, "flash_attention": 44,
@@ -388,8 +393,8 @@ EXPECTED_PREPARE = {"stream_attention_int8": 0, "flash_attention": 156,
 # no depth model: the UNet's norms alone
 EXPECTED_PER_STEP_BF16 = {"stream_attention_bf16": 40, "stream_attention_int8": 0,
                           "flash_attention": 32, "conv3x3": 64, "conv3x3_s2": 3,
-                          "group_norm": 80, "layer_norm": 108, **OPT_IN_OFF}
-EXPECTED_PREPARE_BF16 = {"stream_attention_int8": 0, "group_norm": 160, "layer_norm": 216,
+                          "group_norm": 81, "layer_norm": 108, **OPT_IN_OFF}
+EXPECTED_PREPARE_BF16 = {"stream_attention_int8": 0, "group_norm": 162, "layer_norm": 216,
                          **OPT_IN_OFF}
 # a flash variant takes the self-attentions that pass the flash gate
 # (S >= 1024, a multiple of 128): the 5 spatial transformers at each of the
@@ -886,11 +891,14 @@ def check_quantize_kv(torch):
 GN_ACTS = {"silu": "F.silu", "relu": "torch.relu", "none": "identity"}
 
 
-def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
+def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes, codec=False):
     """The GroupNorm kernel at every (B, T, C, groups, eps, act) that phase
     7's stream step and prepare gave it, with its calls there: its plan's
     route (every step shape must be resident), its time by events and by
-    the profiler's device time, and its share of the bound."""
+    the profiler's device time, and its share of the bound. With ``codec``
+    the shapes are the KL codec's of phase 13, their calls there
+    ``calls_kl`` and ``prepare_calls_kl`` (none on the main path), on
+    either route."""
     import torch.nn.functional as F
 
     from live2diff_tpu_torch.ops.norm import (
@@ -913,7 +921,7 @@ def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
         # bf16 rounding of the output
         err, rel = compare(out, ref, 1e-2)
         plan = group_norm_plan(b, t, c, groups, *gn_device_limits(dev.index or 0))
-        if step_shapes.get(key, 0) and not plan.resident:
+        if step_shapes.get(key, 0) and not plan.resident and not codec:
             raise AssertionError(f"group_norm at the step shape x[{b},{t},{c}]: {plan}, "
                                  f"not resident")
         x_cf = x.permute(0, 2, 1).contiguous()  # channels-first copy, made once
@@ -923,7 +931,9 @@ def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
         dev_ms = device_ms(lambda: group_norm(*args), 50, "group_norm_kernel")
         rows.append(dict(
             shape=f"x[{b},{t},{c}] G{groups} eps {eps:g} {act}",
-            calls=step_shapes.get(key, 0), prepare_calls=prepare_shapes.get(key, 0),
+            **({"calls": 0, "prepare_calls": 0, "calls_kl": step_shapes.get(key, 0),
+                "prepare_calls_kl": prepare_shapes.get(key, 0)} if codec else
+               {"calls": step_shapes.get(key, 0), "prepare_calls": prepare_shapes.get(key, 0)}),
             max_abs_err=err, rel_err=rel, tol=1e-2,
             route=f"{plan.route}, {plan.ctas} CTAs x {plan.tiles_per_cta} tiles of "
                   f"{plan.rows} rows", ms=ms, device_ms=dev_ms,
@@ -940,7 +950,8 @@ def check_group_norm(torch, gen, dev, step_shapes, prepare_shapes):
 # per-step totals besides the main path's: {total's key: (the rows' calls
 # key, the step's name)}
 OTHER_STEPS = {"per_768x512_step": ("calls_768x512", "768x512 step"),
-               "per_ln_all_step": ("calls_ln_all", "phase 10 step")}
+               "per_ln_all_step": ("calls_ln_all", "phase 10 step"),
+               "per_kl_codec_step": ("calls_kl", "KL codec's step")}
 
 
 def summarise(name, source, replaces, rows):
@@ -1079,16 +1090,19 @@ def check_counts(what, counts, expected, per: int):
 
 
 def group_norm_recorder(torch, modules):
-    """Forward pre-hooks on every FusedGroupNorm of ``modules`` that log
-    (B, T, C, groups, eps, act) of each call, as the module hands it to
-    ``group_norm_act``, by the route ``ops/norm.py:gn_route`` gives it: the
-    kernel where x is bf16 on the card, no gradient is needed, the module's
-    choices name its site, the JAX package's conditions hold
-    (``live2diff_tpu/ops/norm.py:140-147``: T * C <= 3 * 2^20, C % groups ==
-    0, C % 8 == 0) and C <= GN_MAX_CHANNELS. Returns (kernel log, plain log,
-    remove)."""
+    """Forward pre-hooks on every FusedGroupNorm and VAEGroupNorm of
+    ``modules`` that log (B, T, C, groups, eps, act) of each call, as the
+    module hands it to ``group_norm_act``, by the route
+    ``ops/norm.py:gn_route`` gives it: the kernel where x is bf16 on the
+    card, its weight and bias are stored in bf16, no gradient is needed, the
+    module's choices name its site, C meets the JAX package's conditions on
+    it (``live2diff_tpu/ops/norm.py:140-147``: C % groups == 0, C % 8 == 0),
+    C <= GN_MAX_CHANNELS and a row of C fits the card's shared memory (the
+    kernel's plan; not the JAX cap on T * C). Returns (kernel log, plain
+    log, remove)."""
     from live2diff_tpu_torch.models.layers import FusedGroupNorm
     from live2diff_tpu_torch.models.resnet import InflatedGroupNorm
+    from live2diff_tpu_torch.models.vae import VAE_SITE, VAEGroupNorm
     from live2diff_tpu_torch.ops._build import needs_grad
     from live2diff_tpu_torch.ops.norm import gn_route
 
@@ -1100,13 +1114,17 @@ def group_norm_recorder(torch, modules):
         # InflatedGroupNorm folds its frame axis into the batch
         n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
         t = x.numel() // (n * c)
-        groups = mod.num_groups * mod.weight.numel() // mod.channels
-        route = gn_route(t, c, groups, x.dtype, x.device.type,
-                         needs_grad(x, mod.weight, mod.bias), mod.site, mod.kernels)
+        if isinstance(mod, VAEGroupNorm):
+            groups, site = mod.num_groups, VAE_SITE
+        else:
+            groups, site = mod.num_groups * mod.weight.numel() // mod.channels, mod.site
+        route = gn_route(t, c, groups, x.dtype, torch.promote_types(mod.weight.dtype,
+                                                                    mod.bias.dtype),
+                         x.device.type, needs_grad(x, mod.weight, mod.bias), site, mod.kernels)
         (log if route == "gn_kernel" else plain).append((n, t, c, groups, mod.eps, mod.act))
 
     handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
-               if isinstance(m, FusedGroupNorm)]
+               if isinstance(m, (FusedGroupNorm, VAEGroupNorm))]
     return log, plain, lambda: [h.remove() for h in handles]
 
 
@@ -1166,11 +1184,14 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     routes over prepare and the (untimed) warm step, and ``group_norm``
     (``layer_norm``) is expected to launch once for each kernel-routed call;
     where ``expected_step`` or ``expected_prepare`` names a norm, the logged
-    calls must number what it says. The route counter
-    (``norm_route_counts``) over the capture must agree with the logs.
-    ``keep``, a list, gets the stream, its state and the frames, for
+    calls must number what it says. The codec's GroupNorms (the KL codec's;
+    TAESD has none) are logged apart and add their kernel-routed calls to
+    ``group_norm``'s launches. The route counters over the capture
+    (``norm_route_counts``, ``codec_route_counts``) must agree with the
+    logs. ``keep``, a list, gets the stream, its state and the frames, for
     ``interleaved``."""
     from live2diff_tpu_torch.builder import build_pipeline
+    from live2diff_tpu_torch.models.vae import codec_route_counts
     from live2diff_tpu_torch.ops import norm, stream_attention
 
     dev = torch.device("cuda")
@@ -1191,6 +1212,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
     # kernel name -> (kernel log, plain log, remove) of its hooks
     recorders = {"group_norm": group_norm_recorder(torch, models),
                  "layer_norm": layer_norm_recorder(torch, models)}
+    codec_log, codec_plain, remove_codec_hooks = group_norm_recorder(torch, [built.vae])
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
@@ -1219,6 +1241,10 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         plain.clear()
         expected_prepare = norm_expected("prepare", expected_prepare, name,
                                          logged_prepare[name])
+    codec_prepare = Counter(codec_log)
+    codec_log.clear()
+    codec_plain.clear()
+    expected_prepare["group_norm"] += sum(codec_prepare.values())
     check_counts("prepare", warm_counts, expected_prepare, 1)
     peak_prepare = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1232,11 +1258,14 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         logged_step[name], plain_step[name] = Counter(log), Counter(plain)
         remove_hooks()
         expected_step = norm_expected("the warm step", expected_step, name, logged_step[name])
+    codec_step, codec_plain_step = Counter(codec_log), Counter(codec_plain)
+    remove_codec_hooks()
 
     _build.reset_launch_counts()
     routes_before = dict(stream_attention.route_counts)
     gn_routes_before = dict(norm.gn_route_counts)
     norm_routes_before = dict(norm.norm_route_counts)
+    codec_before = dict(codec_route_counts)
     times, outs = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
@@ -1247,6 +1276,7 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         if i == 0:
             captured = dict(_build.launch_counts)
             norm_routes = {k: v - norm_routes_before[k] for k, v in norm.norm_route_counts.items()}
+            codec_routes = {k: v - codec_before[k] for k, v in codec_route_counts.items()}
         # uint8 frames cannot show a NaN: check the latents the step made
         if not torch.isfinite(state.x_t_buffer).all():
             raise AssertionError(f"frame {i}: non-finite latents")
@@ -1259,14 +1289,21 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
             raise AssertionError(f"frame output {tuple(out.shape)} {out.dtype}")
     # (a) the wrappers' counts over the capture are one step's; the replays
     # add none
+    codec_kernel, codec_plain_n = sum(codec_step.values()), sum(codec_plain_step.values())
+    expected_step = {**expected_step, "group_norm": expected_step["group_norm"] + codec_kernel}
     check_counts("the capture of the stream step", captured, expected_step, 1)
-    hooked = {"gn_kernel": sum(logged_step["group_norm"].values()),
-              "gn_plain": sum(plain_step["group_norm"].values()),
+    hooked = {"gn_kernel": sum(logged_step["group_norm"].values()) + codec_kernel,
+              "gn_plain": sum(plain_step["group_norm"].values()) + codec_plain_n,
               "ln_kernel": sum(logged_step["layer_norm"].values()),
               "ln_plain": sum(plain_step["layer_norm"].values())}
     if norm_routes != hooked:
         raise AssertionError(f"the capture's norm routes {norm_routes}, the warm step's hooks "
                              f"{hooked}")
+    codec_hooked = {"kl_group_norm": codec_kernel + codec_plain_n,
+                    "kl_group_norm_kernel": codec_kernel}
+    if {k: codec_routes[k] for k in codec_hooked} != codec_hooked:
+        raise AssertionError(f"the capture's codec routes {codec_routes}, the warm step's "
+                             f"hooks {codec_hooked}")
     if counts != captured:
         raise AssertionError(f"{n_frames - 1} replays launched through the wrappers: "
                              f"{counts} after them, {captured} after the capture")
@@ -1298,9 +1335,11 @@ def run_stream(torch, _build, n_frames, expected_step, expected_prepare,
         stream_attention_routes_per_step=routes,
         group_norm_routes_per_step=gn_routes,
         norm_routes_per_step=norm_routes,
+        codec_routes_per_step=codec_routes,
         plain_norms_per_step={k: sorted(v.items()) for k, v in plain_step.items()},
         # (step, prepare) Counters of each norm's kernel-routed calls: not printed
         norm_logs={k: (logged_step[k], logged_prepare[k]) for k in recorders},
+        codec_norm_logs=(codec_step, codec_prepare),
     )
     if built.depth_model is not None:
         result["raw_depth"] = raw_depth_stats(torch, stream, frames[:4])
@@ -1465,6 +1504,9 @@ def print_rows(k) -> None:
         if "calls_ln_all" in r:
             extra += (f" calls in phase 10 {r['calls_ln_all']} a step, "
                       f"{r['prepare_calls_ln_all']} in prepare")
+        if "calls_kl" in r:
+            extra += (f" codec calls in phase 13 {r['calls_kl']} a step, "
+                      f"{r['prepare_calls_kl']} in prepare")
         if "route" in r:
             extra += f" route ({r['route']}) share of bound {r['bound_share']:.3f}"
         if "bound_fp32_lanes_ms" in r:
@@ -1483,7 +1525,8 @@ def print_rows(k) -> None:
 
 def report_stream(result) -> None:
     print(json.dumps({k: v for k, v in result.items()
-                      if k not in ("frame_ms_all", "raw_depth", "depth_profile", "norm_logs")}))
+                      if k not in ("frame_ms_all", "raw_depth", "depth_profile", "norm_logs",
+                                   "codec_norm_logs")}))
     if "depth_profile" in result:
         print(f"depth branch profile: {json.dumps(result['depth_profile'])}")
     print(f"frame ms all: {[round(t, 3) for t in result['frame_ms_all']]}")
@@ -2109,6 +2152,12 @@ def kl_phase(torch, _build, main_keep) -> dict:
                                 {**EXPECTED_PREPARE, **NO_TAESD}, keep=kept,
                                 kv_cache_dtype="int8", use_tiny_vae=False)
     stream = kept[0][0]
+    # bf16, parameters stored in bf16: every GroupNorm of the codec's encode
+    # and decode on the GroupNorm kernel
+    routes = result["codec_routes_per_step"]
+    if not routes["kl_group_norm_kernel"] == routes["kl_group_norm"] == 52:
+        raise AssertionError(f"the KL step's codec routes {routes}: expected all 52 GroupNorms "
+                             "on the kernel")
     result["params"]["vae"] = sum(p.numel() for p in stream.vae.parameters())
     result["codec"] = codec = codec_ms(torch, stream)
     result["taesd_codec"] = codec_ms(torch, main_keep[0])
@@ -3175,9 +3224,9 @@ TP_STREAM = dict(latent=64, steps=2, frames=8, text_len=77)
 TP_RMS_TOL = 1e-2
 # each rank's launches a stream step: #1 at every temporal attention, #3 at
 # the UNet's spatial attentions (phase 4's 44 less the ViT's 12), the UNet's
-# norms on #8 and #9 (phase 5's 80 and 108: a rank's slab of whole groups
+# norms on #8 and #9 (phase 5's 81 and 108: a rank's slab of whole groups
 # takes the GroupNorm kernel), nothing else
-TP_STEP_LAUNCHES = {"stream_attention_int8": 40, "flash_attention": 32, "group_norm": 80,
+TP_STEP_LAUNCHES = {"stream_attention_int8": 40, "flash_attention": 32, "group_norm": 81,
                     "layer_norm": 108}
 # (c) the train step at tp = 2 at phase 16's widths (256x256, batch 2, clip
 # 4, fp32, TF32 off), every weight drawn (the zero-initialised output
@@ -3647,7 +3696,8 @@ def param_dtype_phase(torch, _build, control: str = PARAM_DTYPE_CONTROL) -> dict
     same weights rounded to bf16 (the default path): ``prepare`` and 20
     captured frames each from the same inputs; the relative RMS of each
     uint8 output and of the latents each step leaves (``x_t_buffer``), the
-    hand kernels' launches a step (equal), all kernels a step by the
+    hand kernels' launches a step (equal but the GroupNorm kernel's, which
+    fp32 parameters keep off), all kernels a step by the
     profile, parameter bytes and peak memory. Then the control: the
     fp32-parameter pipeline with the UNet parameter ``control`` (a norm's
     bias) set to 0, the same 20 frames against the same twin.
@@ -3737,7 +3787,8 @@ def param_dtype_verdict(pd: dict) -> None:
     frame of the fp32-parameter stream within ``PARAM_DTYPE_RMS_TOL`` of the
     twin in its outputs and ``PARAM_DTYPE_LATENT_TOL`` in its latents, the
     control's worst latents past that limit, the same hand-kernel launches
-    a step, the twin's kernels a step within the main path's."""
+    a step but no GroupNorm kernel with fp32 parameters, the twin's kernels
+    a step within the main path's."""
     for key, tol in (("rel_rms", PARAM_DTYPE_RMS_TOL),
                      ("latents_rel_rms", PARAM_DTYPE_LATENT_TOL)):
         errs = pd[key]
@@ -3746,7 +3797,10 @@ def param_dtype_verdict(pd: dict) -> None:
     if not max(pd["control_latents_rel_rms"]) > PARAM_DTYPE_LATENT_TOL:
         raise AssertionError(f"the limit {PARAM_DTYPE_LATENT_TOL} misses a dropped "
                              f"{pd['control']}: {pd['control_latents_rel_rms']}")
-    if pd["fp32 params"]["launches"] != pd["bf16 params"]["launches"]:
+    # fp32 parameters send every GroupNorm to its plain version (the kernel
+    # would round them): the other hand kernels launch alike
+    if "group_norm" in pd["fp32 params"]["launches"] or pd["fp32 params"]["launches"] != {
+            k: v for k, v in pd["bf16 params"]["launches"].items() if k != "group_norm"}:
         raise AssertionError(f"hand kernels a step differ: {pd}")
     twin_kernels = pd["bf16 params"]["kernels_per_step"]
     if isinstance(twin_kernels, float) and twin_kernels > MAIN_PATH_LAUNCHES_PER_STEP:
@@ -4118,8 +4172,7 @@ def main() -> int:
         raise AssertionError(f"main path: {step_launches} launches a step, more than "
                              f"{MAIN_PATH_LAUNCHES_PER_STEP}")
     # the norm kernels at every site (the defaults): run_stream held the
-    # launches to MAIN_PATH_NORMS_*; every other norm call of the step runs
-    # plain, and only the UNet's GroupNorm over the JAX cap on T * C may
+    # launches to MAIN_PATH_NORMS_*; no norm call of the step runs plain
     plain = result["plain_norms_per_step"]
     print(f"norm routes a step: {json.dumps(result['norm_routes_per_step'])}; plain calls "
           f"(shape, calls): {json.dumps(plain)}")
@@ -4137,7 +4190,7 @@ def main() -> int:
         torch, _build, BF16_FRAMES, EXPECTED_PER_STEP_BF16, EXPECTED_PREPARE_BF16,
         kv_cache_dtype="bf16", use_depth=False)
     print(json.dumps({k: v for k, v in result_bf16.items()
-                      if k not in ("frame_ms_all", "norm_logs")}))
+                      if k not in ("frame_ms_all", "norm_logs", "codec_norm_logs")}))
     dev_bf16 = result_bf16["device_kernels_per_step"]
     del result_bf16
 
@@ -4221,7 +4274,8 @@ def main() -> int:
           f"{sum(ln_prepare.values())} in prepare")
     if not by_site[("spatial", 1280)] or not by_site[("temporal", 1280)]:
         raise AssertionError(f"ln_kernel_sites='all': no kernel LayerNorm at C = 1280: {ln_step}")
-    print(json.dumps({k: v for k, v in result.items() if k not in ("frame_ms_all", "norm_logs")}))
+    print(json.dumps({k: v for k, v in result.items()
+                      if k not in ("frame_ms_all", "norm_logs", "codec_norm_logs")}))
     del result
     # the kernel against its plain version at every shape phase 10 gave it
     ln_index = next(i for i, k in enumerate(kernels) if k["name"] == "layer_norm")
@@ -4259,10 +4313,31 @@ def main() -> int:
           f"of the KL frame p50 {kl['codec_share_of_frame_p50']:.3f} ({smi})")
     print(f"beside phase 4: {json.dumps({'main path': main_path, 'KL codec': headline(kl)})}; "
           f"in turns: {json.dumps(kl['in_turns_with_phase_4'])} ({smi})")
-    if dev_main != {**kl["device_kernels_per_step"], **{k: dev_main[k] for k in NO_TAESD}}:
+    # phase 4's kernels but the TAESD convs, and the codec's GroupNorms besides
+    kl_kernels = dict(kl["device_kernels_per_step"])
+    kl_kernels["group_norm"] -= kl["codec_routes_per_step"]["kl_group_norm_kernel"]
+    if dev_main != {**kl_kernels, **{k: dev_main[k] for k in NO_TAESD}}:
         raise AssertionError(f"KL step kernels {kl['device_kernels_per_step']}, phase 4's "
-                             f"{dev_main} but the TAESD convs")
+                             f"{dev_main} but the TAESD convs and the codec's GroupNorms")
+    codec_step, codec_prepare = kl["codec_norm_logs"]
     del kl
+    # the GroupNorm kernel at the codec's shapes, beside phase 7's rows
+    gn_index = next(i for i, k in enumerate(kernels) if k["name"] == "group_norm")
+    gn_entry = kernels[gn_index]
+    codec_rows = check_group_norm(torch, gen, dev, codec_step, codec_prepare, codec=True)
+    kernels[gn_index] = gn_entry = dict(
+        summarise("group_norm", gn_entry["source"], gn_entry["replaces"],
+                  gn_entry["shapes"] + codec_rows),
+        device_ms_per_step=gn_entry["device_ms_per_step"],
+        device_ms_per_kl_codec_step=(
+            sum(r["calls_kl"] * r["device_ms"] for r in codec_rows)
+            if all(isinstance(r["device_ms"], float) for r in codec_rows) else "not measured"))
+    print_rows(gn_entry)
+    print(f"group_norm per KL codec step ({sum(codec_step.values())} calls): device ms "
+          f"{gn_entry['device_ms_per_kl_codec_step']} (events "
+          f"{gn_entry['per_kl_codec_step']['ms']}, bound "
+          f"{gn_entry['per_kl_codec_step']['bound_ms']}, plain "
+          f"{gn_entry['per_kl_codec_step']['plain_ms']}) ({smi})")
 
     phase("MultiStream at full width: phase 4's pipeline, S = 2 and 4, both graphs "
           "captured at construction")

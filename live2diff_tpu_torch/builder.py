@@ -212,7 +212,8 @@ def build_pipeline(
     its parameters in, ``dtype`` the one it computes in, as in the JAX
     builder: a linear or conv layer casts its weight and bias to ``dtype``
     at use, a GroupNorm or LayerNorm applies its scale and bias as stored
-    (the norm kernels take them cast to ``dtype``). No entry point passes
+    (the LayerNorm kernel takes them cast to ``dtype``; a GroupNorm whose
+    parameters are wider than ``dtype`` runs plain). No entry point passes
     it. Runs on the card unless ``device`` says otherwise.
 
     The last three arguments are the JAX package's kernel knobs, made per
@@ -228,8 +229,8 @@ def build_pipeline(
       S >= 1024. bench.py's ``--spatial-qk int8`` is ``"int8"`` and its
       default ``--spatial-qk bf16`` is ``"dmajor"`` (``bench.py:218``).
     * ``gn_kernel_sites`` (``LIVE2DIFF_GN_TAGS``): the GroupNorm sites
-      (``resnet``, ``attn_in``, ``motion_in``, ``midas``) that launch the
-      GroupNorm kernel, ``"all"`` (the default) or ``"none"``.
+      (``resnet``, ``attn_in``, ``motion_in``, ``midas``, ``vae``) that
+      launch the GroupNorm kernel, ``"all"`` (the default) or ``"none"``.
     * ``ln_kernel_sites`` (``LIVE2DIFF_LN_TAGS``): the LayerNorm sites
       (``spatial``, ``temporal``, ``vit``) that launch the LayerNorm kernel;
       ``"all"`` by default.
@@ -269,8 +270,8 @@ def build_pipeline(
         vae = build_module(TinyAutoencoder, device, param_dtype, generator, taesd_sd, missing)
     else:
         # SD-1.5's own codec at its own widths, whatever the UNet's overrides
-        vae = build_module(lambda: AutoencoderKL(VAEConfig()), device, param_dtype, generator,
-                           vae_state_dict(vae_sd) if vae_sd else None, missing)
+        vae = build_module(lambda: AutoencoderKL(VAEConfig(), kernels), device, param_dtype,
+                           generator, vae_state_dict(vae_sd) if vae_sd else None, missing)
     depth_model = None
     if use_depth:
         dpt_sd = _file_state_dict(cfg.get("depth_model_path"), missing, timing)

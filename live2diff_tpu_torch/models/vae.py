@@ -6,15 +6,24 @@ frames in [-1, 1] to ``[N, H/8, W/8, 4]`` latents and back.
 ``AutoencoderKL`` is SD-1.5's own codec, under the diffusers ``vae/`` key
 names (``encoder.down_blocks.0.resnets.0.norm1``, ``quant_conv``,
 ``decoder.mid_block.attentions.0.to_q``, ...), so a diffusers state dict
-loads by name. No kernel of the JAX package sits under it: its convs are
-``F.conv2d`` (cuDNN on the card) on channels-last views, its GroupNorms
-``F.group_norm`` in fp32 with eps 1e-6 cast back to the compute dtype, and
-its one-head mid-block attention at D = 512 plain matmuls, with the JAX
-module's roundings: logits from a product in the compute dtype, cast to
-fp32 and scaled, an fp32 softmax, probabilities cast back.
-``codec_route_counts`` counts those GroupNorms and attentions where they
-run eagerly or are captured (a graph's replay runs no Python), as
-``ops/norm.py:norm_route_counts`` counts the norms that have kernels.
+loads by name. Its convs are ``F.conv2d`` (cuDNN on the card) on
+channels-last views, and its one-head mid-block attention at D = 512 plain
+matmuls, with the JAX module's roundings: logits from a product in the
+compute dtype, cast to fp32 and scaled, an fp32 softmax, probabilities
+cast back. Its 52 GroupNorms a frame at 512x512 (eps 1e-6), each with the
+SiLU after it where one follows, go through ``ops/norm.py:group_norm_act``
+at site ``"vae"``: statistics, normalisation and SiLU in fp32, one
+rounding to the compute dtype, as the JAX module's fp32 ``nn.GroupNorm``
+cast back (whose SiLU then ran on the rounded value). On the card a bf16
+call takes the GroupNorm kernel (``csrc/group_norm.cu``), which writes
+NHWC-contiguous output for the next conv; a call stays on the plain
+version on the CPU, in fp32, with a gradient, at a site the pipeline's
+``KernelChoices`` leaves out, and where the norm's weight or bias is stored
+wider than x (``param_dtype=float32``), which the kernel would round.
+``codec_route_counts`` counts those GroupNorms (``kl_group_norm``), the
+ones that took the kernel (``kl_group_norm_kernel``) and the attentions
+where they run eagerly or are captured (a graph's replay runs no Python),
+as ``ops/norm.py:norm_route_counts`` counts every norm call by route.
 
 TAESD's module indices follow the madebyollin/taesd ``nn.Sequential``
 numbering (``encoder.0``, ``encoder.1.conv.2``, ..., including the
@@ -35,15 +44,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..ops.conv import conv3x3
+from ..ops.norm import group_norm_act, norm_route_counts
 from .layers import Linear, at_dtype
 from .resnet import conv_nhwc
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
 
-# the KL codec's fp32 GroupNorms and plain attentions, counted where they
-# run eagerly or are captured, never at a replay
-codec_route_counts: Dict[str, int] = {"kl_group_norm": 0, "kl_attention": 0}
+# the KL codec's GroupNorms, those of them that took the GroupNorm kernel,
+# and its plain attentions, counted where they run eagerly or are captured,
+# never at a replay
+codec_route_counts: Dict[str, int] = {"kl_group_norm": 0, "kl_group_norm_kernel": 0,
+                                      "kl_attention": 0}
+# the codec's GroupNorm call site (``ops/choices.py:GN_SITES``)
+VAE_SITE = "vae"
 
 
 # ---------------------------------------------------------------------------
@@ -63,35 +78,43 @@ class VAEConfig:
 
 
 class VAEGroupNorm(nn.GroupNorm):
-    """GroupNorm over ``[N, H, W, C]``, eps 1e-6, computed in fp32 and cast
-    to the input's dtype (flax ``nn.GroupNorm(dtype=float32)`` then
-    ``astype``)."""
+    """GroupNorm over ``[N, H, W, C]``, eps 1e-6, then ``act`` (``"none"`` or
+    ``"silu"``), computed in fp32 and rounded once to the input's dtype;
+    the parameters are applied as stored (see the module's docstring for
+    the route)."""
 
-    def __init__(self, groups: int, channels: int):
+    def __init__(self, groups: int, channels: int, act: str = "none",
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__(groups, channels, eps=1e-6)
+        self.act, self.kernels = act, kernels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        kernel_calls = norm_route_counts["gn_kernel"]
+        y = group_norm_act(x.reshape(n, h * w, c), self.weight, self.bias, self.num_groups,
+                           self.eps, self.act, VAE_SITE, self.kernels)
         codec_route_counts["kl_group_norm"] += 1
-        out = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                           self.weight.float(), self.bias.float(), self.eps)
-        return out.permute(0, 2, 3, 1).to(x.dtype)
+        codec_route_counts["kl_group_norm_kernel"] += (norm_route_counts["gn_kernel"]
+                                                       - kernel_calls)
+        return y.reshape(n, h, w, c)
 
 
 class VAEResnetBlock(nn.Module):
-    """GroupNorm -> SiLU -> conv, twice, plus the (1x1-projected) input."""
+    """GroupNorm + SiLU -> conv, twice, plus the (1x1-projected) input."""
 
-    def __init__(self, in_channels: int, out_channels: int, groups: int = 32):
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.norm1 = VAEGroupNorm(groups, in_channels)
+        self.norm1 = VAEGroupNorm(groups, in_channels, "silu", kernels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.norm2 = VAEGroupNorm(groups, out_channels)
+        self.norm2 = VAEGroupNorm(groups, out_channels, "silu", kernels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = conv_nhwc(F.silu(self.norm1(x)), self.conv1)
-        h = conv_nhwc(F.silu(self.norm2(h)), self.conv2)
+        h = conv_nhwc(self.norm1(x), self.conv1)
+        h = conv_nhwc(self.norm2(h), self.conv2)
         if self.conv_shortcut is not None:
             x = conv_nhwc(x, self.conv_shortcut)
         return x + h
@@ -100,9 +123,10 @@ class VAEResnetBlock(nn.Module):
 class VAEAttention(nn.Module):
     """One-head self-attention over the spatial positions (the mid block's)."""
 
-    def __init__(self, channels: int, groups: int = 32):
+    def __init__(self, channels: int, groups: int = 32,
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
-        self.group_norm = VAEGroupNorm(groups, channels)
+        self.group_norm = VAEGroupNorm(groups, channels, kernels=kernels)
         self.to_q = Linear(channels, channels)
         self.to_k = Linear(channels, channels)
         self.to_v = Linear(channels, channels)
@@ -139,10 +163,11 @@ class _Resampler(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, stride=stride, padding=0 if stride == 2 else 1)
 
 
-def _mid_block(ch: int, groups: int) -> _VAEBlock:
+def _mid_block(ch: int, groups: int, kernels: KernelChoices) -> _VAEBlock:
     mid = _VAEBlock()
-    mid.resnets.extend([VAEResnetBlock(ch, ch, groups), VAEResnetBlock(ch, ch, groups)])
-    mid.attentions.append(VAEAttention(ch, groups))
+    mid.resnets.extend([VAEResnetBlock(ch, ch, groups, kernels),
+                        VAEResnetBlock(ch, ch, groups, kernels)])
+    mid.attentions.append(VAEAttention(ch, groups, kernels))
     return mid
 
 
@@ -153,7 +178,8 @@ def _run_mid(mid: _VAEBlock, x: torch.Tensor) -> torch.Tensor:
 class VAEEncoder(nn.Module):
     """[N, H, W, 3] -> [N, H/8, W/8, 2 * latent] (mean and log-variance)."""
 
-    def __init__(self, config: VAEConfig = VAEConfig()):
+    def __init__(self, config: VAEConfig = VAEConfig(),
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         cfg, ch, g = config, config.block_out_channels, config.norm_num_groups
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
@@ -162,13 +188,13 @@ class VAEEncoder(nn.Module):
         for i, out_ch in enumerate(ch):
             blk = _VAEBlock()
             for _ in range(cfg.layers_per_block):
-                blk.resnets.append(VAEResnetBlock(cur, out_ch, g))
+                blk.resnets.append(VAEResnetBlock(cur, out_ch, g, kernels))
                 cur = out_ch
             if i < len(ch) - 1:
                 blk.downsamplers.append(_Resampler(out_ch, stride=2))
             self.down_blocks.append(blk)
-        self.mid_block = _mid_block(ch[-1], g)
-        self.conv_norm_out = VAEGroupNorm(g, ch[-1])
+        self.mid_block = _mid_block(ch[-1], g, kernels)
+        self.conv_norm_out = VAEGroupNorm(g, ch[-1], "silu", kernels)
         self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -180,29 +206,30 @@ class VAEEncoder(nn.Module):
                 # pad (0, 1) on H and W, then a stride-2 VALID conv
                 x = conv_nhwc(F.pad(x, (0, 0, 0, 1, 0, 1)), down.conv)
         x = _run_mid(self.mid_block, x)
-        return conv_nhwc(F.silu(self.conv_norm_out(x)), self.conv_out)
+        return conv_nhwc(self.conv_norm_out(x), self.conv_out)
 
 
 class VAEDecoder(nn.Module):
     """[N, h, w, latent] -> [N, 8h, 8w, 3]."""
 
-    def __init__(self, config: VAEConfig = VAEConfig()):
+    def __init__(self, config: VAEConfig = VAEConfig(),
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         cfg, g = config, config.norm_num_groups
         rev = list(reversed(config.block_out_channels))
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = _mid_block(rev[0], g)
+        self.mid_block = _mid_block(rev[0], g, kernels)
         self.up_blocks = nn.ModuleList()
         cur = rev[0]
         for i, out_ch in enumerate(rev):
             blk = _VAEBlock()
             for _ in range(cfg.layers_per_block + 1):
-                blk.resnets.append(VAEResnetBlock(cur, out_ch, g))
+                blk.resnets.append(VAEResnetBlock(cur, out_ch, g, kernels))
                 cur = out_ch
             if i < len(rev) - 1:
                 blk.upsamplers.append(_Resampler(out_ch, stride=1))
             self.up_blocks.append(blk)
-        self.conv_norm_out = VAEGroupNorm(g, rev[-1])
+        self.conv_norm_out = VAEGroupNorm(g, rev[-1], "silu", kernels)
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -214,7 +241,7 @@ class VAEDecoder(nn.Module):
                 # nearest 2x, then a 3x3 conv
                 x = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
                 x = conv_nhwc(x.permute(0, 2, 3, 1), up.conv)
-        return conv_nhwc(F.silu(self.conv_norm_out(x)), self.conv_out)
+        return conv_nhwc(self.conv_norm_out(x), self.conv_out)
 
 
 class AutoencoderKL(nn.Module):
@@ -223,11 +250,12 @@ class AutoencoderKL(nn.Module):
     replay of the JAX draw) it adds ``exp(0.5 * clip(logvar, -30, 20)) * eps``.
     The stream runtime takes the mean and adds its own noise."""
 
-    def __init__(self, config: VAEConfig = VAEConfig()):
+    def __init__(self, config: VAEConfig = VAEConfig(),
+                 kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.config = config
-        self.encoder = VAEEncoder(config)
-        self.decoder = VAEDecoder(config)
+        self.encoder = VAEEncoder(config, kernels)
+        self.decoder = VAEDecoder(config, kernels)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
 

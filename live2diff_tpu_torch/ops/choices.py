@@ -35,7 +35,7 @@ import dataclasses
 from typing import FrozenSet, Iterable, Union
 
 FLASH_VARIANTS = ("dmajor", "smajor", "int8")
-GN_SITES = frozenset({"resnet", "attn_in", "motion_in", "midas"})
+GN_SITES = frozenset({"resnet", "attn_in", "motion_in", "midas", "vae"})
 LN_SITES = frozenset({"spatial", "temporal", "vit"})
 
 Sites = Union[str, Iterable[str]]

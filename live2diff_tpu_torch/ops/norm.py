@@ -12,20 +12,35 @@ does a call in one launch (``ops/choices.py`` gives the measured gain).
 
 Which implementation a call takes is decided from what the call can
 observe, by ``gn_route`` and ``ln_route`` (pure functions of the shape,
-dtype, device type, gradient need, site and choices):
+dtype, device type, gradient need, site, choices and, for GroupNorm, the
+parameters' dtype and the card's shared memory):
 
 * the kernel where x is a bf16 CUDA tensor, no gradient is needed through
   the call, the pipeline's choices name the site and the shape conditions
   hold: for ``group_norm_act`` (``csrc/group_norm.cu``, replacing the
-  Pallas ``_group_norm_kernel``) the JAX package's (``norm.py:140-147``:
-  ``T*C <= 3*2^20``, ``C % groups == 0``, ``C % 8 == 0``) and ``C <=
-  16384``, the widest row the kernel holds; for ``layer_norm``
-  (``csrc/layer_norm.cu``, replacing the Pallas ``_layer_norm_kernel``)
-  the JAX package's (``norm.py:239-246``: ``C % 8 == 0`` and at least
-  ``2^14`` elements) and ``C <= 10240``;
+  Pallas ``_group_norm_kernel``) gamma and beta stored in x's dtype,
+  ``C % groups == 0``, ``C % 8 == 0`` (the JAX package's,
+  ``norm.py:140-147``), ``C <= 16384`` and a plan
+  (``group_norm_plan``: a row of C fits a CTA's shared memory beside gamma,
+  beta and the work area); for ``layer_norm`` (``csrc/layer_norm.cu``,
+  replacing the Pallas ``_layer_norm_kernel``) the JAX package's
+  (``norm.py:239-246``: ``C % 8 == 0`` and at least ``2^14`` elements) and
+  ``C <= 10240``;
 * the plain version, the same function in PyTorch ops, everywhere else:
-  CPU tensors, fp32 pipelines, training with gradients, slabs over the
-  caps. The route differs, the function does not.
+  CPU tensors, fp32 pipelines, training with gradients, rows too wide. The
+  route differs, the function does not.
+
+The JAX package also caps the GroupNorm slab at ``T*C <= 3*2^20``: its
+Pallas kernel holds a whole ``[T, C]`` sample in VMEM. The CUDA kernel cuts
+a sample into tiles of whole rows and streams the tiles through shared
+memory where they do not all fit, so the port has no such cap: the UNet's
+``[2, 4096, 960]``, prepare's 8-frame slabs and the KL codec's GroupNorms
+(to ``[2, 262144, 128]`` at 512x512) take the kernel.
+
+The GroupNorm kernel takes gamma and beta in x's dtype. Parameters stored
+wider (``param_dtype=float32``) are never rounded to fit it: the call runs
+plain and applies them in fp32 as they are, as the JAX package's Pallas
+kernel applies its own (``norm.py:94-95``).
 
 ``norm_route_counts`` counts the calls by norm and route where the route
 is decided, so a captured step's replays add nothing. ``group_norm_plan``
@@ -38,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Iterator, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,8 +62,6 @@ from .choices import DEFAULT_KERNELS, KernelChoices
 
 LN_NAME = "layer_norm"
 GN_NAME = "group_norm"
-# the JAX package's cap on the [T, C] slab its GroupNorm kernel takes
-GN_MAX_ELEMS = 3 * 1024 * 1024
 # the CUDA GroupNorm kernel's widest row: one row, gamma and beta and the
 # statistics' per-channel partials fit a CTA's shared memory
 GN_MAX_CHANNELS = 16384
@@ -75,17 +88,22 @@ norm_route_counts: Dict[str, int] = {"gn_kernel": 0, "gn_plain": 0, "ln_kernel":
                                      "ln_plain": 0}
 
 
-def gn_route(t: int, c: int, groups: int, dtype: torch.dtype, device_type: str,
-             grad: bool, site: str, kernels: KernelChoices) -> str:
+def gn_route(t: int, c: int, groups: int, dtype: torch.dtype, param_dtype: torch.dtype,
+             device_type: str, grad: bool, site: str, kernels: KernelChoices,
+             smem_bytes: Optional[int] = None, device_index: int = 0) -> str:
     """``"gn_kernel"`` or ``"gn_plain"``: where ``group_norm_act`` sends a
-    call on x ``[B, t, c]`` (see the module's docstring)."""
+    call on x ``[B, t, c]`` in ``dtype`` with gamma and beta in
+    ``param_dtype`` (see the module's docstring). ``smem_bytes``: the shared
+    memory a block may opt into on the card; None reads card
+    ``device_index``'s, once every other condition holds."""
     if (
-        device_type == "cuda" and dtype == torch.bfloat16 and not grad
-        and kernels.gn_kernel_at(site) and t * c <= GN_MAX_ELEMS and c % groups == 0
-        and c % 8 == 0 and c <= GN_MAX_CHANNELS
+        device_type != "cuda" or dtype != torch.bfloat16 or param_dtype != dtype or grad
+        or not kernels.gn_kernel_at(site) or c % groups or c % 8 or c > GN_MAX_CHANNELS
     ):
-        return "gn_kernel"
-    return "gn_plain"
+        return "gn_plain"
+    if smem_bytes is None:
+        smem_bytes = gn_device_limits(device_index)[1]
+    return "gn_kernel" if t >= 1 and _gn_cta_rows(c, groups, smem_bytes) >= 1 else "gn_plain"
 
 
 def ln_route(numel: int, c: int, dtype: torch.dtype, device_type: str, grad: bool,
@@ -141,7 +159,9 @@ def _group_mean(x: torch.Tensor) -> torch.Tensor:
     whole). CUDA reduces in a tree, in fp32."""
     if x.is_cuda:
         return x.mean(dim=(1, 3))
-    return (x.sum(dim=(1, 3), dtype=torch.float64) / (x.shape[1] * x.shape[3])).float()
+    # T first: the CPU sums a strided pair of axes many times slower
+    sums = x.sum(dim=1, dtype=torch.float64).sum(dim=-1)
+    return (sums / (x.shape[1] * x.shape[3])).float()
 
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}
@@ -155,6 +175,13 @@ def _gn_smem_bytes(c: int, groups: int, slots: int, rows: int) -> int:
     v = c // 8
     work = ((_GN_THREADS // v) * c if v <= _GN_THREADS else c) + groups
     return _GN_BAR_BYTES + 4 * c + -(-4 * work // 16) * 16 + 2 * slots * rows * c
+
+
+def _gn_cta_rows(c: int, groups: int, smem_bytes: int) -> int:
+    """Rows of C a CTA can hold in ``smem_bytes`` of shared memory beside the
+    mbarriers, gamma, beta and the work area: a kernel call on rows of C has
+    a plan (``group_norm_plan``) where this is at least 1."""
+    return (smem_bytes - _gn_smem_bytes(c, groups, 0, 0)) // (2 * c)
 
 
 class GroupNormPlan(NamedTuple):
@@ -201,7 +228,7 @@ def group_norm_plan(b: int, t: int, c: int, groups: int, sms: int,
     tiles, each CTA taking several in turn with two or more buffers (one
     tile reduced while the next is copied in)."""
     row = 2 * c
-    cap = (smem_bytes - _gn_smem_bytes(c, groups, 0, 0)) // row  # rows a CTA holds
+    cap = _gn_cta_rows(c, groups, smem_bytes)  # rows a CTA holds
     if b < 1 or t < 1 or c % 8 or c % groups or cap < 1:
         raise ValueError(f"group_norm_plan: no plan for x [{b}, {t}, {c}], groups {groups} "
                          f"in {smem_bytes} bytes of shared memory")
@@ -300,15 +327,14 @@ def group_norm_act(
     """GroupNorm over [B, T, C] with per-B fp32 statistics, optional
     SiLU/ReLU: the kernel where ``gn_route`` says so, the plain version
     elsewhere; decided before any launch. gamma and beta may be stored in
-    another dtype than x (``param_dtype``): the plain version applies them
-    in fp32 as they are, the kernel, which takes them in x's dtype, after a
-    cast."""
+    another dtype than x (``param_dtype``): the call then runs plain, which
+    applies them in fp32 as they are."""
     _, t, c = x.shape
-    grad = _build.needs_grad(x, gamma, beta)
-    route = gn_route(t, c, groups, x.dtype, x.device.type, grad, site, kernels)
+    route = gn_route(t, c, groups, x.dtype, torch.promote_types(gamma.dtype, beta.dtype),
+                     x.device.type, _build.needs_grad(x, gamma, beta), site, kernels,
+                     device_index=x.device.index or 0)
     norm_route_counts[route] += 1
     if route == "gn_kernel":
-        gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
         return group_norm(*map(_aligned, (x, gamma, beta)), groups, eps, act)
     return group_norm_plain(x, gamma, beta, groups, eps, act)
 
@@ -376,7 +402,9 @@ def layer_norm(
 ) -> torch.Tensor:
     """LayerNorm over the trailing axis, fp32 centred statistics, per row:
     the kernel where ``ln_route`` says so, the plain version elsewhere.
-    gamma and beta in another dtype than x: as ``group_norm_act``."""
+    gamma and beta in another dtype than x: the plain version applies them
+    in fp32 as they are, the kernel, which takes them in x's dtype, after a
+    cast."""
     c = x.shape[-1]
     grad = _build.needs_grad(x, gamma, beta)
     route = ln_route(x.numel(), c, x.dtype, x.device.type, grad, site, kernels)

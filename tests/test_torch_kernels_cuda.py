@@ -18,9 +18,11 @@ the int8-QK entry's pre-pass against ``quantize_groups`` bit for bit,
 repeated cold launches of the int8-QK and LayerNorm kernels bit-equal,
 the int8 KV cache's quantisation against the CPU, GroupNorm at ragged row
 counts with each activation, at C = 4096 with 512 groups, C / G < 8, its
-widest row and its streamed route, over repeated cold launches that must
+widest row and its streamed route, at the KL codec's 12 shapes (eps
+1e-6, the route its plan gives), over repeated cold launches that must
 agree bit for bit, as one device kernel a call and replayed from a CUDA
-graph, the conv at the edges of its 4 x 16 output
+graph, SD-1.5's AutoencoderKL in bf16 (its GroupNorms on the kernel)
+against its fp32 copy, the conv at the edges of its 4 x 16 output
 tiles, on both input paths, with a skip aligned to 4 bytes only and over
 repeated launches on inputs evicted from the L2, and the wrappers'
 refusals. Run them on the card, from the repository root:
@@ -44,6 +46,7 @@ from collections import Counter
 import pytest
 import torch
 
+from _torch_norm_shapes import GN_CODEC_SHAPES
 from live2diff_tpu_torch.ops import _build
 from live2diff_tpu_torch.ops.attention import dot_product_attention, stream_window_attention
 from live2diff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
@@ -54,7 +57,7 @@ from live2diff_tpu_torch.ops.flash_attention import (
 )
 from live2diff_tpu_torch.ops.choices import KernelChoices
 from live2diff_tpu_torch.ops.norm import (
-    GN_MAX_CHANNELS, GN_MAX_ELEMS, LN_MAX_CHANNELS, LN_MIN_ELEMS, gn_device_limits,
+    GN_MAX_CHANNELS, LN_MAX_CHANNELS, LN_MIN_ELEMS, gn_device_limits,
     gn_route_counts, group_norm, group_norm_act, group_norm_plain, group_norm_plan, layer_norm,
     layer_norm_plain, layer_norm_rows, norm_route_counts,
 )
@@ -634,6 +637,59 @@ def test_group_norm_matches_plain(dev, b, t, c, groups, act, eps):
     assert _rel(out, group_norm_plain(x, g, bt, groups, eps, act)) < GN_TOL
 
 
+KL_BF16_TOL = 5e-2  # bf16 against fp32 (CPU: 0.012-0.021); one wrong norm: 0.26-0.41
+
+
+@pytest.mark.parametrize("b,t,c", GN_CODEC_SHAPES)
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_group_norm_at_the_codec_shapes(dev, b, t, c, act):
+    """The KL codec's calls, past the JAX package's cap on T * C: one launch
+    each on the route ``group_norm_plan`` gives (resident or streamed),
+    eps 1e-6, within the plain version's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(t + c + b)
+    x = (_randn(gen, dev, b, t, c) * 3.0 + 2.0).to(torch.bfloat16)
+    g = (1.0 + 0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    bt = (0.1 * _randn(gen, dev, c)).to(torch.bfloat16)
+    before, routes = _build.launch_counts["group_norm"], dict(gn_route_counts)
+    out = group_norm_act(x, g, bt, 32, 1e-6, act, site="vae")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["group_norm"] == before + 1
+    plan = group_norm_plan(b, t, c, 32, *gn_device_limits(0))
+    assert {k: v - routes[k] for k, v in gn_route_counts.items()} == {
+        "resident": int(plan.resident), "streamed": int(not plan.resident)}
+    assert _rel(out, group_norm_plain(x, g, bt, 32, 1e-6, act)) < GN_TOL
+
+
+def test_kl_codec_in_bf16_matches_its_fp32_copy(dev):
+    """SD-1.5's AutoencoderKL at 256x256: the bf16 codec, whose 52
+    GroupNorms of an encode and a decode all take the kernel, against its
+    fp32 copy on the card, whose GroupNorms all run plain (by dtype)."""
+    from live2diff_tpu_torch.models.vae import AutoencoderKL, VAEConfig, codec_route_counts
+
+    torch.manual_seed(0)
+    fp32 = AutoencoderKL(VAEConfig()).to(dev).eval()
+    bf16 = AutoencoderKL(VAEConfig()).to(dev).eval()
+    bf16.load_state_dict(fp32.state_dict())
+    bf16.to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand(2, 256, 256, 3, generator=gen, device=dev) * 2 - 1
+    z = torch.randn(1, 32, 32, 4, generator=gen, device=dev)
+    out = {}
+    for name, model in (("fp32", fp32), ("bf16", bf16)):
+        dtype = next(model.parameters()).dtype
+        before = dict(codec_route_counts)
+        with torch.no_grad():
+            out[name] = model.encode(x.to(dtype)).float(), model.decode(z.to(dtype)).float()
+        torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in codec_route_counts.items()}
+        kernel = 52 if name == "bf16" else 0
+        assert counted == {"kl_group_norm": 52, "kl_group_norm_kernel": kernel,
+                           "kl_attention": 2}, (name, counted)
+    for got, ref in zip(out["bf16"], out["fp32"]):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _rms(got, ref) < KL_BF16_TOL
+
+
 def test_group_norm_takes_every_shape_the_jax_gate_sends_it(dev):
     """group_norm_act at C = 4096 with 512 groups (the JAX gate takes it,
     the kernel before this design refused it) launches the kernel; past the
@@ -767,7 +823,11 @@ def _norm_hooks(models):
         n = x.shape[0] * x.shape[1] if isinstance(mod, InflatedGroupNorm) else x.shape[0]
         t = x.numel() // (n * c)
         groups = mod.num_groups * mod.weight.numel() // mod.channels
-        fits = t * c <= GN_MAX_ELEMS and c % groups == 0 and c % 8 == 0 and c <= GN_MAX_CHANNELS
+        try:  # the kernel has a plan: a row of C fits a CTA's shared memory
+            group_norm_plan(n, t, c, groups, *gn_device_limits(x.device.index or 0))
+            fits = c <= GN_MAX_CHANNELS
+        except ValueError:
+            fits = False
         counts["gn_kernel" if fits else "gn_plain"] += 1
         sites[mod.site] += fits
 

@@ -248,14 +248,15 @@ def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypa
                                  KernelChoices(flash_variant="int8", gn_kernel_sites="all"))
     tunet.load_state_dict(params_from_jax(params), strict=True)
     tunet.eval()
-    norms = []  # the route of each GroupNorm call, were it bf16 on the card
+    norms = []  # the route of each GroupNorm call, were it bf16 on an H100
 
     def on_card(mod, args):
         x = args[0]
         c = x.shape[-1]
         n = x.shape[0] * x.shape[1] if isinstance(mod, tres.InflatedGroupNorm) else x.shape[0]
         norms.append(tnorm.gn_route(x.numel() // (n * c), c, mod.num_groups, torch.bfloat16,
-                                    "cuda", False, mod.site, mod.kernels))
+                                    torch.bfloat16, "cuda", False, mod.site, mod.kernels,
+                                    smem_bytes=232448))
 
     for m in tunet.modules():
         if isinstance(m, tl.FusedGroupNorm):

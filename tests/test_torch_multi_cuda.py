@@ -182,7 +182,8 @@ def test_kl_codec_capture_records_its_attention_events(dev):
     pair around each of the codec's 2 attentions; each replay inside a
     recorder call gives the stages with ``device.codec_attn`` after them,
     shorter than the encode and decode it lies in and outside
-    ``step_device_ms``. ``codec_routes`` grows by 52 GroupNorms and 2
+    ``step_device_ms``. ``codec_routes`` grows by 52 GroupNorms, all 52 on
+    the GroupNorm kernel (bf16, parameters stored in bf16), and 2
     attentions at the eager warm step and again at the capture, and not
     at the replays. A TAESD step's graph holds the 6 stage events only."""
     from live2diff_tpu_torch.models.vae import codec_route_counts
@@ -194,7 +195,7 @@ def test_kl_codec_capture_records_its_attention_events(dev):
     before = dict(codec_route_counts)
     state, _ = stream(state, frames[0, 0])  # the warm step, the capture, a replay
     assert {k: codec_route_counts[k] - before[k] for k in before} == {
-        "kl_group_norm": 104, "kl_attention": 4}
+        "kl_group_norm": 104, "kl_group_norm_kernel": 104, "kl_attention": 4}
     (graph,) = stream._graphs.graphs
     assert len(graph.events) == len(STAGES) + 1 + 4
     counted = dict(codec_route_counts)

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import live2diff_tpu.ops.attention as jattn
 import live2diff_tpu.ops.norm as jnorm
+from _torch_norm_shapes import GN_CODEC_SHAPES
 from _torch_parity import rel_err
 from live2diff_tpu.models.motion import _quantize_kv as jax_quantize_kv
 from live2diff_tpu.ops.conv import conv3x3_fused, conv3x3_s2_fused
@@ -473,8 +474,9 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
                                    site="resnet")
     out = tnorm.group_norm(T(x), T(g), T(bt), groups=32, eps=1e-5, act=act)
     assert jax_calls == [1]
-    assert tnorm.gn_route(t, c, 32, torch.bfloat16, "cuda", False, "resnet",
-                          KernelChoices(gn_kernel_sites="all")) == "gn_kernel"
+    assert tnorm.gn_route(t, c, 32, torch.bfloat16, torch.bfloat16, "cuda", False, "resnet",
+                          KernelChoices(gn_kernel_sites="all"),
+                          smem_bytes=H100_SMEM) == "gn_kernel"
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
@@ -485,8 +487,8 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
     pytest.param({"resnet"}, "attn_in", 64, 320, False, 4, id="sites2-attn_in-64-320-False"),
     # no site chosen ("none")
     pytest.param(frozenset(), "resnet", 64, 320, False, 4, id="sites3-resnet-64-320-False"),
-    # T * C > 3 * 2^20
-    pytest.param("all", "resnet", 4096, 960, False, 4, id="all-resnet-4096-960-False"),
+    # T * C > 3 * 2^20, the JAX package's cap, which the CUDA kernel has not
+    pytest.param("all", "resnet", 4096, 960, True, 4, id="all-resnet-4096-960-True"),
     pytest.param("all", "resnet", 16, 36, False, 4, id="all-resnet-16-36-False"),  # C % 8
     # wider than the UNet's 2560, any G dividing C: the kernel
     pytest.param("all", "resnet", 64, 4096, True, 32, id="all-resnet-64-4096-True-32"),
@@ -495,9 +497,10 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
     pytest.param("all", "resnet", 64, 16392, False, 8, id="all-resnet-64-16392-False-8"),
 ])
 def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups):
-    """A bf16 card call takes the kernel where the JAX package's conditions
-    hold (norm.py:140-147), C fits the kernel and the pipeline names the
-    site; this fp32 CPU call runs the plain version whatever the site."""
+    """A bf16 card call takes the kernel where C meets the JAX package's
+    conditions on it (norm.py:140-147), the kernel has a plan for a row of C
+    and the pipeline names the site; this fp32 CPU call runs the plain
+    version whatever the site."""
     calls = []
     real = tnorm.group_norm
     monkeypatch.setattr(tnorm, "group_norm",
@@ -507,7 +510,8 @@ def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups)
     kernels = KernelChoices(gn_kernel_sites=sites)
     out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=groups, act="silu",
                                site=site, kernels=kernels)
-    on_card = tnorm.gn_route(t, c, groups, torch.bfloat16, "cuda", False, site, kernels)
+    on_card = tnorm.gn_route(t, c, groups, BF16, BF16, "cuda", False, site, kernels,
+                             smem_bytes=H100_SMEM)
     assert on_card == ("gn_kernel" if taken else "gn_plain") and calls == []
     torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c),
                                                            groups, 1e-5, "silu"))
@@ -519,14 +523,16 @@ def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups)
     (64, 4096, 512, True),     # more than 256 groups
     (64, 64, 16, True),        # C / G = 4 < 8: a vector spans groups
     (64, 16392, 8, True),      # C > GN_MAX_CHANNELS: JAX's kernel, the port's plain version
-    (4096, 960, 32, False),    # T * C > 3 * 2^20
+    (4096, 960, 32, False),    # T * C > 3 * 2^20: JAX's plain version, the port's kernel
     (16, 36, 4, False),        # C % 8 != 0
 ])
 def test_group_norm_gate_matches_jax(monkeypatch, t, c, groups, jax_takes):
     """The port's route sends a bf16 card call to its kernel wherever the
     JAX package sends it to the Pallas kernel (norm.py:140-147, run in
-    interpret mode) and the row fits the kernel; past GN_MAX_CHANNELS the
-    route differs but the result (here the CPU's plain version) does not."""
+    interpret mode) and the row fits the kernel, and also past the JAX
+    package's cap on T * C, which held a whole sample in VMEM (the CUDA
+    kernel streams its tiles); where the routes differ the result (here the
+    CPU's plain version) does not."""
     monkeypatch.setattr(jnorm, "_GN_SITE_TAGS", set())
     monkeypatch.setattr(jattn, "_BACKEND", "tpu")
     jax_calls = []
@@ -542,9 +548,10 @@ def test_group_norm_gate_matches_jax(monkeypatch, t, c, groups, jax_takes):
     kernels = KernelChoices(gn_kernel_sites="all")
     out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=groups, eps=1e-5, act="silu",
                                site="resnet", kernels=kernels)
-    on_card = tnorm.gn_route(t, c, groups, torch.bfloat16, "cuda", False, "resnet", kernels)
+    on_card = tnorm.gn_route(t, c, groups, BF16, BF16, "cuda", False, "resnet", kernels,
+                             smem_bytes=H100_SMEM)
     assert len(jax_calls) == int(jax_takes)
-    assert (on_card == "gn_kernel") == (jax_takes and c <= tnorm.GN_MAX_CHANNELS)
+    assert (on_card == "gn_kernel") == (c % 8 == 0 and c <= tnorm.GN_MAX_CHANNELS)
     assert rel_err(out.numpy(), ref) < 1e-5
 
 
@@ -565,6 +572,9 @@ GN_STEP_SHAPES = [
     # prepare: the UNet over the 8 warmup frames folded into B, the DPT over them
     (8, 4096, 320, 32), (8, 4096, 640, 32), (8, 1024, 1920, 32), (8, 256, 2560, 32),
     (8, 576, 256, 32), (8, 9216, 256, 32), (8, 36864, 64, 32),
+    # the UNet's calls past the JAX cap at 512x512, 768x512 and 4 sessions
+    (2, 4096, 960, 32), (2, 6144, 960, 32), (2, 6144, 640, 32), (8, 4096, 960, 32),
+    *[(*shape, 32) for shape in GN_CODEC_SHAPES],
     (1, 1, 8, 1), (1, 4097, 320, 32), (3, 333, 1280, 32), (16, 64, 320, 32),
     (1, 64, 4096, 512), (1000, 64, 320, 32), (1, 8, 16384, 16384),
 ])
@@ -572,7 +582,7 @@ def test_group_norm_plan(b, t, c, groups):
     """The kernel's plan on an H100: every row of every sample in exactly one
     tile, no tile across two samples, runs of tiles per CTA, at most one CTA
     an SM, the buffers within shared memory, few CTAs for small slabs, and
-    every stream-step call resident (x read once)."""
+    every stream-step call of the UNet and the DPT resident (x read once)."""
     plan = tnorm.group_norm_plan(b, t, c, groups, H100_SMS, H100_SMEM)
     tiles = list(plan.tiles(b, t))
     assert len(tiles) == b * plan.tiles_per_sample
@@ -631,16 +641,20 @@ def _ln_case(numel, c, dtype=BF16, device="cuda", grad=False, site="spatial", ke
 @pytest.mark.parametrize("norm,shape,dtype,device,grad,site,kernels,kernel", [
     # a bf16 card call with no gradient takes the kernel at every site by default
     *[pytest.param(*_gn_case(4096, 320, site=s), id=f"gn-{s}") for s in sorted(
-        ["resnet", "attn_in", "motion_in", "midas"])],
+        ["resnet", "attn_in", "motion_in", "midas", "vae"])],
     *[pytest.param(*_ln_case(2 * 4096 * 320, 320, site=s), id=f"ln-{s}") for s in sorted(
         ["spatial", "temporal", "vit"])],
     # and at every shape of a 512x512 stream step that the kernels take
     *[pytest.param(*_gn_case(t, c), id=f"gn-step-{b}x{t}x{c}") for b, t, c in GN_STEP_SHAPES],
     *[pytest.param(*_ln_case(n, c), id=f"ln-step-{n}x{c}") for n, c in LN_STEP_SHAPES],
-    # the UNet's top up-block input, over the JAX cap on T * C: plain
-    pytest.param(*_gn_case(4096, 960, kernel=False), id="gn-step-over-cap"),
-    # prepare's 8 warmup frames in one slab: over the cap
-    pytest.param(*_gn_case(8 * 4096, 320, kernel=False), id="gn-8-frame-slab"),
+    # the UNet's top up-block input, past the JAX package's cap on T * C
+    # (its kernel held a whole sample in VMEM): the CUDA kernel has a plan
+    pytest.param(*_gn_case(4096, 960), id="gn-step-past-jax-cap-planned"),
+    # prepare's 8 warmup frames in one slab: past that cap, streamed
+    pytest.param(*_gn_case(8 * 4096, 320), id="gn-8-frame-slab-streamed"),
+    # and the KL codec's, to 512x512 at 128 and 256 channels
+    *[pytest.param(*_gn_case(t, c, site="vae"), id=f"gn-codec-{b}x{t}x{c}")
+      for b, t, c in GN_CODEC_SHAPES],
     # fp32 pipelines, fp16, training with a gradient, the CPU, "none" chosen
     pytest.param(*_gn_case(4096, 320, dtype=F32, kernel=False), id="gn-fp32"),
     pytest.param(*_ln_case(2 * 4096 * 320, 320, dtype=F32, kernel=False), id="ln-fp32"),
@@ -660,12 +674,39 @@ def _ln_case(numel, c, dtype=BF16, device="cuda", grad=False, site="spatial", ke
 def test_norm_route(norm, shape, dtype, device, grad, site, kernels, kernel):
     """``gn_route`` and ``ln_route``: the kernel for a bf16 CUDA call with
     no gradient through it, at a chosen site, where the shape conditions
-    hold; the plain version for every other call."""
+    hold; the plain version for every other call. GroupNorm on an H100's
+    shared memory, which a card call reads from its card."""
     if norm == "gn":
-        route = tnorm.gn_route(*shape, dtype, device, grad, site, kernels)
+        route = tnorm.gn_route(*shape, dtype, dtype, device, grad, site, kernels,
+                               smem_bytes=H100_SMEM)
     else:
         route = tnorm.ln_route(*shape, dtype, device, grad, site, kernels)
     assert route == f"{norm}_{'kernel' if kernel else 'plain'}"
+
+
+@pytest.mark.parametrize("c,groups,smem,param_dtype,kernel", [
+    (16384, 32, H100_SMEM, BF16, True),  # the widest row GN_MAX_CHANNELS allows fits an H100
+    (16384, 32, 48 * 1024, BF16, False),  # no row fits 48 KB beside gamma, beta, work area
+    (4096, 32, 48 * 1024, BF16, True),  # one row of 4096 does
+    (128, 32, H100_SMEM, BF16, True),  # parameters stored in x's dtype: nothing to round
+    (128, 32, H100_SMEM, F32, False),  # fp32 parameters, which the kernel would round: plain
+])
+def test_gn_route_takes_the_kernels_plan_and_params_in_x_dtype(c, groups, smem, param_dtype,
+                                                               kernel):
+    """A bf16 card call takes the kernel only where ``group_norm_plan`` finds
+    a plan (a row of C fits a CTA's shared memory), whatever T, and only
+    where its parameters are stored in bf16."""
+    for t in (1, 4096, 262144):
+        route = tnorm.gn_route(t, c, groups, BF16, param_dtype, "cuda", False, "vae", ALL,
+                               smem_bytes=smem)
+        assert route == ("gn_kernel" if kernel else "gn_plain")
+    if param_dtype == BF16 and not kernel:
+        with pytest.raises(ValueError):
+            tnorm.group_norm_plan(1, 64, c, groups, H100_SMS, smem)
+    if kernel:
+        assert tnorm.group_norm_plan(1, 262144, c, groups, H100_SMS, smem).ctas >= 1
+    assert tnorm.gn_route(0, c, groups, BF16, BF16, "cuda", False, "vae", ALL,
+                          smem_bytes=smem) == "gn_plain"  # no rows: no plan
 
 
 def test_norm_calls_count_their_route_and_keep_the_gradient():

@@ -18,7 +18,8 @@ it, on the CPU.
 * The KL codec (a narrow one in place of SD-1.5's): a marked step records a
   (before, after) event pair around each of its two attentions, between
   the encode's and the decode's boundaries, and its eager steps count 52
-  GroupNorms and 2 attentions in ``codec_routes``; a TAESD step makes no
+  GroupNorms (none on the kernel, fp32 on the CPU) and 2 attentions in
+  ``codec_routes``; a TAESD step makes no
   such event and counts none; the recorder sums the pairs into
   ``device.codec_attn``, outside ``step_device_ms``; and the two readers of
   that stage, by hand and None where a call has no such stage.
@@ -49,8 +50,10 @@ KL_READERS = ("codec_attn_ms", "codec_attn_roofline_pct")
 NARROW_VAE = dict(block_out_channels=(8, 8, 16, 16), norm_num_groups=4)
 # one frame step of the KL codec: the encode (4 levels of 2 resnets, the
 # mid block's 2 resnets and attention, the output norm) and the decode (the
-# mid block, 4 levels of 3 resnets, the output norm), 2 GroupNorms a resnet
-KL_STEP_ROUTES = {"kl_group_norm": (8 * 2 + 5 + 1) + (5 + 12 * 2 + 1), "kl_attention": 2}
+# mid block, 4 levels of 3 resnets, the output norm), 2 GroupNorms a resnet;
+# an fp32 CPU step takes the GroupNorm kernel at none of them
+KL_STEP_ROUTES = {"kl_group_norm": (8 * 2 + 5 + 1) + (5 + 12 * 2 + 1), "kl_group_norm_kernel": 0,
+                  "kl_attention": 2}
 OVERRIDES = dict(block_out_channels=(8, 16, 16, 16), attention_head_dim=2,
                  cross_attention_dim=768, norm_num_groups=4, motion_num_attention_heads=2)
 H = W = 64
@@ -575,10 +578,11 @@ def test_a_marked_taesd_step_makes_no_codec_event(wrapper, monkeypatch):
 
 
 def test_codec_routes_count_each_eager_kl_step(kl_wrapper):
-    """``trace_summary()`` reports the KL codec's fp32 GroupNorms and plain
-    attentions: 52 and 2 a frame step on the CPU (every step is eager
-    here), and twice as many for ``prepare``: the warmup, whose 8 frames go
-    through one encode and one decode, and the eager warm step."""
+    """``trace_summary()`` reports the KL codec's GroupNorms, those on the
+    GroupNorm kernel, and its plain attentions: 52, 0 and 2 a frame step on
+    the CPU in fp32 (every step is eager here), and twice as many for
+    ``prepare``: the warmup, whose 8 frames go through one encode and one
+    decode, and the eager warm step."""
     frames = _frames(WARMUP_FRAMES + 2, seed=14)
 
     def routes():

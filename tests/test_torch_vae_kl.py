@@ -7,6 +7,10 @@ JAX on the same weights. Ingest: a diffusers ``vae/`` state dict loads by
 name with nothing missing, in today's names and in the older
 ``query``/``key``/``value``/``proj_attn`` ones (1x1-conv weights), and the
 port's parameters equal what the JAX converter makes of the same dict.
+GroupNorm: ``VAEGroupNorm`` (now ``ops/norm.py:group_norm_act`` with the
+SiLU inside) against the formula it replaced (``F.group_norm`` in fp32, a
+cast, then ``F.silu``), and its route: plain on the CPU, and, routed as on
+an H100, the kernel only where its parameters are stored in x's dtype.
 Pipeline parity: both builders read one set of synthetic checkpoints with
 a ``vae/`` folder (tests/_torch_checkpoints.py), ``use_tiny_vae=False`` at
 64x64 with the narrow VAE config put in place of ``VAEConfig()`` on both
@@ -22,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import live2diff_tpu.builder as jax_builder
 import live2diff_tpu_torch.builder as port_builder
@@ -34,7 +39,10 @@ from live2diff_tpu.models.vae import AutoencoderKL as JaxAutoencoderKL
 from live2diff_tpu.models.vae import VAEConfig as JaxVAEConfig
 from live2diff_tpu_torch.convert.checkpoint import build_module, vae_state_dict
 from live2diff_tpu_torch.convert.from_jax import params_from_jax
-from live2diff_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from live2diff_tpu_torch.models.vae import (
+    VAE_SITE, AutoencoderKL, VAEConfig, VAEGroupNorm, codec_route_counts,
+)
+from live2diff_tpu_torch.ops import norm as tnorm
 from test_torch_pipeline import FP32_TOL, _frames, _normal, _Replay
 
 NARROW = dict(block_out_channels=(8, 8, 16, 16), norm_num_groups=4)
@@ -103,6 +111,84 @@ def test_decode_matches_jax(kl):
         ours = tv.decode(torch.from_numpy(z)).numpy()
     assert ours.shape == ref.shape == (2, SIZE, SIZE, 3)
     assert rel_err(ours, ref) < MODULE_TOL
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 (8 significant bits) at |a|, at least 2^-16."""
+    _, e = torch.frexp(a.abs().clamp_min(2.0 ** -8))
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def _norm_module(c, act, dtype, seed, param_dtype=None):
+    torch.manual_seed(seed)
+    m = VAEGroupNorm(4 if c < 64 else 32, c, act)
+    with torch.no_grad():
+        m.weight.copy_(1 + 0.2 * torch.randn(c))
+        m.bias.copy_(0.3 * torch.randn(c))
+    return m.to(param_dtype or dtype).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_group_norm_matches_the_formula_it_replaced(dtype, act):
+    """The module against ``F.group_norm`` over an fp32 NCHW copy, cast to
+    x's dtype, then ``F.silu``: in fp32 within fp32 rounding (the sums run
+    in other orders); in bf16 within one bf16 ulp of the normalised value,
+    the one rounding the old formula made before its SiLU and the new one
+    does not. On the CPU each call runs plain and counts so."""
+    for seed, (n, h, w, c) in enumerate([(2, 16, 16, 64), (1, 32, 32, 128), (1, 8, 8, 512),
+                                         (1, 12, 10, 24)]):
+        m = _norm_module(c, act, dtype, seed)
+        x = (torch.randn(n, h, w, c) * 3 + 1).to(dtype)
+        codec, routes = dict(codec_route_counts), dict(tnorm.norm_route_counts)
+        with torch.no_grad():
+            out = m(x)
+            pre = F.group_norm(x.float().permute(0, 3, 1, 2), m.num_groups, m.weight.float(),
+                               m.bias.float(), 1e-6).permute(0, 2, 3, 1)
+        old = pre.to(dtype)
+        old = F.silu(old) if act == "silu" else old
+        assert out.shape == x.shape and out.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, old, rtol=1e-5, atol=1e-5 * old.abs().max().item())
+        else:
+            assert ((out.float() - old.float()).abs() <= _bf16_ulp(pre)).all()
+        assert codec_route_counts["kl_group_norm"] == codec["kl_group_norm"] + 1
+        assert codec_route_counts["kl_group_norm_kernel"] == codec["kl_group_norm_kernel"]
+        assert tnorm.norm_route_counts["gn_plain"] == routes["gn_plain"] + 1
+
+
+@pytest.mark.parametrize("param_dtype,kernel", [(torch.bfloat16, True),
+                                                 (torch.float32, False)])
+def test_group_norm_takes_the_kernel_only_with_parameters_in_x_dtype(monkeypatch, param_dtype,
+                                                                    kernel):
+    """Routed as a bf16 call on an H100 would be (``gn_route`` told the device
+    is a card; on the CPU the kernel's wrapper runs its plain version), the
+    module takes the kernel where its weight and bias are stored in bf16,
+    and stays plain where they are fp32, which the kernel would round; the
+    output is the plain version's either way, and the codec counts the
+    route."""
+    real_route, real_gn = tnorm.gn_route, tnorm.group_norm
+    sites, launches = [], []
+
+    def as_on_card(t, c, groups, dtype, param_dtype, device_type, grad, site, *args, **kw):
+        sites.append(site)
+        return real_route(t, c, groups, dtype, param_dtype, "cuda", grad, site, *args,
+                          **{**kw, "smem_bytes": 232448})
+
+    monkeypatch.setattr(tnorm, "gn_route", as_on_card)
+    monkeypatch.setattr(tnorm, "group_norm",
+                        lambda *a, **kw: (launches.append(a[0].shape), real_gn(*a, **kw))[1])
+    m = _norm_module(128, "silu", torch.bfloat16, 7, param_dtype)
+    x = (torch.randn(1, 16, 16, 128) * 3 + 1).to(torch.bfloat16)
+    codec = dict(codec_route_counts)
+    with torch.no_grad():
+        out = m(x)
+    assert set(sites) == {VAE_SITE}
+    assert launches == ([(1, 256, 128)] if kernel else [])
+    assert codec_route_counts["kl_group_norm_kernel"] == codec["kl_group_norm_kernel"] + kernel
+    assert codec_route_counts["kl_group_norm"] == codec["kl_group_norm"] + 1
+    ref = tnorm.group_norm_plain(x.reshape(1, 256, 128), m.weight, m.bias, 32, 1e-6, "silu")
+    assert torch.equal(out, ref.reshape(x.shape))
 
 
 def _diffusers_vae(seed=0, old_names=False, conv_shaped=False):
