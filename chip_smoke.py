@@ -173,9 +173,8 @@ Phases, each printed as it ends; any failure exits non-zero:
    counted steps' launches are asserted by route, and the profile's device
    kernels by route (the short route's one kernel a launch, the tiled
    backward's two). Prints the TF32 settings in force.
-17. warm start and the tools (run between phases 14 and 15, the last to
-   use phase 4's stream, so that phases 15 and 16 run with it freed, as
-   they did before this phase was added): the port's package is copied into a
+17. warm start and the parity tool (run between phases 14 and 15, with
+   phase 4's stream freed): the port's package is copied into a
    temporary directory (its build directory, beside the copy, starts
    empty); a cold process imports the copy, builds the bench-default
    ``StreamV2VWrapper`` (512x512, TAESD, DPT-hybrid, int8 cache), prepares
@@ -189,18 +188,8 @@ Phases, each printed as it ends; any failure exits non-zero:
    cold one; a copy of the directory with one flipped byte in a library is
    refused (its sha256) and left as it was. Prints each start's build,
    load, prepare and first-step seconds, the seconds from process start to
-   the first frame and the seconds in ``_build.build``. Then the tools on
-   phase 4's stream: ``trace_step`` over 8 synchronised replays (each
-   kernel in the frame whose runtime call launched it, by correlation id;
-   the step's kernels, each name as often as the fullest frame holds it,
-   must equal phase 4's profile (a frame short of some lost them in the
-   trace, and they are printed by name), no record may lie outside the
-   frames, and the device ms a frame must be within 3 % of phase 4's; prints the top kernels, families, buckets, the frame's split
-   into host time before the replay, the replay's host time, device busy
-   time and idle time inside the device span of the replay, and host time
-   around it, and the gaps between kernels by width),
-   ``profile_stages`` (each stage captured alone beside the step), and
-   ``parity`` at ``--tiny`` on the card against its own output (inf).
+   the first frame and the seconds in ``_build.build``. Then ``parity``
+   at ``--tiny`` on the card against its own output (inf).
 18. tensor and data parallelism (after phase 16), the JAX package's
    multi-chip path (``live2diff_tpu/parallel/``, ``__graft_entry__.
    dryrun_multichip``) on ``parallel/{mesh,tp,infer}.py``. The card is one,
@@ -230,28 +219,17 @@ Phases, each printed as it ends; any failure exits non-zero:
    against one ``MultiStream`` of 4 here (uint8 outputs within 2 levels,
    noised latents within 0.05 relative RMS); then ``dryrun_multichip``.
    Prints the phase's seconds.
-19. the port bench (after phase 18): ``python -m live2diff_tpu_torch.bench
-   --frames 40 --budget 300`` in a process of its own, from an empty engine
-   directory, which it primes: its last JSON line is printed, and the phase
-   fails if it has no headline, if a row was skipped or reports ``None`` or
-   ``"error"``, or if ``kernel_selftest`` is not ``"pass"``; then a second
-   run (``--frames 10 --budget 0``) from the directory the first primed,
-   which must load from it (``aot_hit``). Each run's step must launch the
-   hand kernels phase 4's does, as often (counted at its capture, printed on
-   a stage line). The bench's frame numbers are printed beside phase 4's
-   frame p50. Then bench.py's pipeline at full width with
-   ``param_dtype=torch.float32`` (bf16 compute) against a twin holding the
-   same weights rounded to bf16: ``prepare`` and 20 captured frames each
-   from the same inputs, every uint8 output and the latents each step
-   leaves within their limits (``PARAM_DTYPE_RMS_TOL``,
-   ``PARAM_DTYPE_LATENT_TOL``, relative RMS) of the twin's, the same
-   hand-kernel launches a step but the GroupNorm kernel's (the
-   fp32-parameter GroupNorms run plain), the twin's kernels a step within
-   3,949 (the profile); prints each one's relative RMS, kernels and device ms a step,
-   parameter bytes and peak memory. Last, the control: the fp32-parameter
-   pipeline with one UNet GroupNorm bias dropped, 20 frames again, whose
-   latents must cross their limit.
-
+19. kernel selftest (after phase 18):
+   ``tools/kernel_check.run_all(quick=True)``, every kernel against its
+   plain version on the card at the JAX ``tools/kernel_check.py`` shapes
+   and tolerances; the phase fails unless it reads pass. This phase was
+   the port's own bench (``live2diff_tpu_torch/bench.py``) and a comparison
+   of fp32-stored parameters against bf16 ones. Both were retired: the
+   bench because ``benchmark/run.py`` is the one measurement of the port
+   and phase 17 covers its cold and warm starts, the comparison because
+   every module now stores its parameters in the pipeline's dtype. The
+   kernel selftest, which the bench ran, stays. The other phases keep
+   their numbers.
 20. full width, card against CPU (after phase 19): bench.py's
    configuration (int8 cache, TAESD, the DPT-hybrid, uint8 frames) with
    every weight refilled by ``fan_in_init_`` (kernels N(0, 1/fan_in), norm
@@ -1094,9 +1072,9 @@ def group_norm_recorder(torch, modules):
     ``modules`` that log (B, T, C, groups, eps, act) of each call, as the
     module hands it to ``group_norm_act``, by the route
     ``ops/norm.py:gn_route`` gives it: the kernel where x is bf16 on the
-    card, its weight and bias are stored in bf16, no gradient is needed, the
-    module's choices name its site, C meets the JAX package's conditions on
-    it (``live2diff_tpu/ops/norm.py:140-147``: C % groups == 0, C % 8 == 0),
+    card, no gradient is needed, the module's choices name its site, C
+    meets the JAX package's conditions on it
+    (``live2diff_tpu/ops/norm.py:140-147``: C % groups == 0, C % 8 == 0),
     C <= GN_MAX_CHANNELS and a row of C fits the card's shared memory (the
     kernel's plan; not the JAX cap on T * C). Returns (kernel log, plain
     log, remove)."""
@@ -1118,9 +1096,8 @@ def group_norm_recorder(torch, modules):
             groups, site = mod.num_groups, VAE_SITE
         else:
             groups, site = mod.num_groups * mod.weight.numel() // mod.channels, mod.site
-        route = gn_route(t, c, groups, x.dtype, torch.promote_types(mod.weight.dtype,
-                                                                    mod.bias.dtype),
-                         x.device.type, needs_grad(x, mod.weight, mod.bias), site, mod.kernels)
+        route = gn_route(t, c, groups, x.dtype, x.device.type,
+                         needs_grad(x, mod.weight, mod.bias), site, mod.kernels)
         (log if route == "gn_kernel" else plain).append((n, t, c, groups, mod.eps, mod.act))
 
     handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
@@ -2945,7 +2922,7 @@ def training_phase(torch, _build, smi, gen, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: warm start from a primed engine directory, and the tools
+# phase 17: warm start from a primed engine directory, and parity
 # ---------------------------------------------------------------------------
 
 START_TAG = "START_RESULT "
@@ -2954,8 +2931,6 @@ START_TIMEOUT_S = 600
 # the wrappers of the main path, each of which a warm first frame launches
 MAIN_PATH_WRAPPERS = ("stream_attention_int8", "flash_attention", "conv3x3", "conv3x3_s2",
                       "layer_norm", "group_norm")
-TRACE_FRAMES = 8
-TRACE_DEVICE_TOL = 0.03  # trace_step's device ms a frame against phase 4's profile
 PARITY_FRAMES = 14  # toonyou.yaml's 4 steps: 8 warmup frames, a lag of 3, 3 outputs
 
 
@@ -3109,46 +3084,17 @@ def start_phase(torch) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def tools_phase(torch, main_keep, main_path) -> dict:
-    """Phase 17, second part: the tools on phase 4's kept stream (trace_step,
-    profile_stages) and parity's tiny self-comparison on the card."""
-    import itertools
+def parity_phase() -> dict:
+    """Phase 17, second part: parity's tiny self-comparison on the card."""
     import shutil
     import tempfile
 
     import numpy as np
     from PIL import Image
 
-    from live2diff_tpu_torch.tools import parity, profile_stages, trace_step
+    from live2diff_tpu_torch.tools import parity
 
-    stream, _, frames = main_keep
-    order = itertools.cycle(range(len(frames)))
-
-    def step():
-        main_keep[1], _ = stream(main_keep[1], frames[next(order)])
-
-    seconds, t0 = {}, time.perf_counter()
-    expected = main_path["kernels_per_step"]
-    traced = trace_step.trace(step, stream.device, frames=TRACE_FRAMES, top=12)
-    # every record in the frame that launched it; each frame replays the
-    # same graph, so the names of the fullest frames are the step's kernels
-    # and a frame short of some (dropped_by_frame) lost them in the trace
-    if traced["unassigned"] or traced["kernels_full"] != expected:
-        raise AssertionError(f"trace_step: {traced['kernels_full']} kernels a step (by frame "
-                             f"{traced['kernels_by_frame']}, dropped "
-                             f"{traced['dropped_by_frame']}), {traced['unassigned']} records "
-                             f"launched in no frame {traced['unassigned_names']}; phase 4 "
-                             f"{expected} a step")
-    rel = traced["device_ms"] / main_path["device_ms_per_step"] - 1
-    if abs(rel) > TRACE_DEVICE_TOL:
-        raise AssertionError(f"trace_step: {traced['device_ms']:.3f} device ms a frame, phase "
-                             f"4's profile {main_path['device_ms_per_step']:.3f} ({rel:+.3%})")
-    traced["device_ms_over_phase_4"] = rel + 1
-    seconds["trace_step"], t0 = time.perf_counter() - t0, time.perf_counter()
-
-    main_keep[1], stages = profile_stages.profile_stages(stream, main_keep[1], frames[0])
-    seconds["profile_stages"], t0 = time.perf_counter() - t0, time.perf_counter()
-
+    t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="live2diff-parity-")
     try:
         rng = np.random.RandomState(0)
@@ -3168,12 +3114,11 @@ def tools_phase(torch, main_keep, main_path) -> dict:
             raise AssertionError(f"parity: a self-comparison gave {again}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    seconds["parity"] = time.perf_counter() - t0
-    return dict(trace=traced, stages=stages, parity=again, seconds=seconds)
+    return dict(parity=again, seconds=time.perf_counter() - t0)
 
 
-def phase_17(torch, main_keep, main_path, smi) -> None:
-    """Phase 17 and its report: ``start_phase``, then ``tools_phase``."""
+def phase_17(torch, smi) -> None:
+    """Phase 17 and its report: ``start_phase``, then ``parity_phase``."""
     t_phase = time.perf_counter()
     started = start_phase(torch)
     t_started = time.perf_counter() - t_phase
@@ -3186,26 +3131,10 @@ def phase_17(torch, main_keep, main_path, smi) -> None:
               f"{r['nvcc_s']:.3f} s ({smi})")
     print(f"warm first frame bit-equal to the cold one; a tampered library refused and kept: "
           f"{started['warm']['tampered']['reason']}")
-    tooled = tools_phase(torch, main_keep, main_path)
-    traced, gaps = tooled["trace"], tooled["trace"]["gaps"]
-    print("trace_step: " + json.dumps({k: traced[k] for k in (
-        "kernels", "kernels_by_frame", "unassigned", "device_ms", "buckets", "gaps")}))
-    print(f"trace_step top kernels: {json.dumps(traced['top'])}")
-    print(f"trace_step families: {json.dumps(traced['families'])}")
-    print(f"trace_step: {traced['kernels_full']} kernels a step (by frame "
-          f"{traced['kernels_by_frame']}, by correlation id; dropped from the trace "
-          f"{json.dumps(traced['dropped_by_frame'])}) and {traced['device_ms']:.3f} "
-          f"device ms a frame (x{traced['device_ms_over_phase_4']:.4f} phase 4's profile); "
-          f"frame p50 {gaps['wall_ms_p50']:.3f} ms = the replay's device span "
-          f"{gaps['span_ms_p50']:.3f} (busy {gaps['busy_ms_p50']:.3f}, idle inside "
-          f"{gaps['idle_in_span_ms_p50']:.3f}) + host {gaps['host_ms']:.3f} (before the replay "
-          f"{gaps['before_replay_ms_p50']:.3f}); the replay's host time (the graph's launch) "
-          f"{gaps['launch_ms_p50']:.3f}; the span under the profiler "
-          f"{gaps['profiled_span_ms_p50']:.3f} ({smi})")
-    print(f"profile_stages on phase 4's stream, ms: {json.dumps(tooled['stages'])} ({smi})")
-    print(f"parity, --tiny on the card against its own output: {json.dumps(tooled['parity'])}")
+    checked = parity_phase()
+    print(f"parity, --tiny on the card against its own output: {json.dumps(checked['parity'])}")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s, the two starts "
-          f"{t_started:.1f} s of it; the tools: {json.dumps(tooled['seconds'])}")
+          f"{t_started:.1f} s of it; parity {checked['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3594,217 +3523,19 @@ def report_tp_phase(tp, smi) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 19: the port bench, and param_dtype at full width
+# phase 19: the kernel selftest
 # ---------------------------------------------------------------------------
 
-BENCH_ARGS = ("--frames", "40", "--budget", "300")
-# the second run reads the engine directory the first one primed; no row
-BENCH_AGAIN_ARGS = ("--frames", "10", "--budget", "0")
-BENCH_TIMEOUT_S = 480  # the budget, a last row's overrun past it, the start
-# each optional row's keys in the bench's line (burst: --chain's default 10)
-BENCH_ROWS = {
-    "burst": ("fps_burst10", "burst10_frame_ms_p50"),
-    "serving_window": ("serving_wall_fps", "serving_p50_fps"),
-    "sessions": ("aggregate_fps_4sessions", "aggregate_device_fps_4sessions",
-                 "round_ms_p50_4sessions_device", "wall_fps_4sessions"),
-    "768x512": ("fps_mean_768x512", "fps_p50_768x512", "vs_baseline_768x512",
-                "fps_burst_768x512"),
-    "psnr": ("psnr_int8_vs_bf16", "snr_int8_vs_bf16", "output_std_int8_check", "psnr_frames"),
-    "selftest": ("kernel_selftest", "kernel_selftest_worst_rel_err"),
-}
-PARAM_DTYPE_FRAMES = 20
-# the fp32-parameter stream against bf16 parameters rounded from the same
-# weights: only the norms' scales and biases (applied in fp32 as stored,
-# not rounded) and the DPT's weight standardisation differ, which 20
-# recursive frames carry on. On an H100 (700 W) the uint8 outputs read
-# 2.1e-4 to 5.5e-4 a frame and the latents each step leaves 9.9e-5 to
-# 1.04e-4; a sub-ulp nudge of the warmup latents moves the bf16 step about
-# 4e-3 (PERF.md, the tp section). Each limit lies between its reading and
-# that. With random weights the outputs are near-flat and see no change
-# inside the UNet, so the control is read on the latents: the
-# fp32-parameter pipeline with this GroupNorm bias set to 0 read 8.5e-3 to
-# 8.7e-3 there (its outputs: 6.3e-4). Inner norms' biases move the latents
-# by less than the sound reading (PERF.md §6, PR 16): the CPU tests hold
-# each layer's semantics; this check holds the full-width path.
-PARAM_DTYPE_RMS_TOL = 2e-3
-PARAM_DTYPE_LATENT_TOL = 1e-3
-PARAM_DTYPE_CONTROL = "conv_norm_out.bias"
 
+def kernel_selftest_phase() -> dict:
+    """``tools/kernel_check.run_all(quick=True)``: every kernel against its
+    plain version on the card. Raises unless it reads pass."""
+    from live2diff_tpu_torch.tools.kernel_check import run_all
 
-def bench_run(extra, engine_dir: str) -> dict:
-    """``python -m live2diff_tpu_torch.bench`` with ``extra`` from this
-    checkout: its last JSON line, the hand kernels' launches a step of its
-    512x512 pipeline (its first launches stage line) and its wall seconds."""
-    from live2diff_tpu_torch.bench import LAUNCHES_TAG
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "live2diff_tpu_torch.bench", *extra,
-                           "--engine-dir", engine_dir],
-                          cwd=here, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"bench {' '.join(extra)}: rc {proc.returncode}, no result line"
-                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    print(f"bench {' '.join(extra)} stage lines:\n{proc.stderr[-4000:]}")
-    result = json.loads(lines[-1])
-    if not str(result.get("metric", "")).startswith("fps_p50_512x512"):
-        raise AssertionError(f"bench {' '.join(extra)}: no headline: {result}")
-    failed = {k: v for k, v in result.items() if v is None or v == "error"}
-    if failed:
-        raise AssertionError(f"bench {' '.join(extra)}: rows failed: {failed}")
-    tagged = [ln.split(LAUNCHES_TAG, 1)[1] for ln in proc.stderr.splitlines()
-              if LAUNCHES_TAG in ln]
-    return dict(result=result, seconds=seconds, launches=json.loads(tagged[0]))
-
-
-def bench_phase(main_launches) -> dict:
-    """Phase 19, first part: the bench with every row from an empty engine
-    directory, which it primes; then a short run from that directory, which
-    must load from it (``aot_hit``). Each run's step launches the hand
-    kernels of phase 4's step, as often (``main_launches``)."""
-    import shutil
-    import tempfile
-
-    engines = tempfile.mkdtemp(prefix="live2diff-bench-")
-    try:
-        first = bench_run(BENCH_ARGS, engines)
-        r = first["result"]
-        missing = {row: [k for k in keys if k not in r] for row, keys in BENCH_ROWS.items()}
-        missing = {row: keys for row, keys in missing.items() if keys}
-        if r["skipped_rows"] or missing:
-            raise AssertionError(f"bench: rows skipped {r['skipped_rows']}, missing {missing}")
-        if r["kernel_selftest"] != "pass":
-            raise AssertionError(f"bench: kernel selftest {r['kernel_selftest']}")
-        again = bench_run(BENCH_AGAIN_ARGS, engines)
-        for run in (first, again):
-            if run["launches"] != main_launches:
-                raise AssertionError(f"bench: launches a step {run['launches']}, phase 4's "
-                                     f"{main_launches}")
-        if again["result"]["aot_hit"] is not True:
-            raise AssertionError(f"bench again from {engines}: aot_hit "
-                                 f"{again['result']['aot_hit']}")
-        return dict(first=first, again=again)
-    finally:
-        shutil.rmtree(engines, ignore_errors=True)
-
-
-def param_dtype_phase(torch, _build, control: str = PARAM_DTYPE_CONTROL) -> dict:
-    """Phase 19, second part: bench.py's pipeline at full width with
-    ``param_dtype=torch.float32`` (bf16 compute) against a twin holding the
-    same weights rounded to bf16 (the default path): ``prepare`` and 20
-    captured frames each from the same inputs; the relative RMS of each
-    uint8 output and of the latents each step leaves (``x_t_buffer``), the
-    hand kernels' launches a step (equal but the GroupNorm kernel's, which
-    fp32 parameters keep off), all kernels a step by the
-    profile, parameter bytes and peak memory. Then the control: the
-    fp32-parameter pipeline with the UNet parameter ``control`` (a norm's
-    bias) set to 0, the same 20 frames against the same twin.
-    ``param_dtype_verdict`` holds the result to its limits."""
-    from live2diff_tpu_torch.builder import build_pipeline
-
-    dev = torch.device("cuda")
-    gc.collect()
-    torch.cuda.empty_cache()
-    kw = dict(dtype=torch.bfloat16, kv_cache_dtype="int8", output_uint8=True, seed=0,
-              device=dev)
-    pipes = {"fp32 params": build_pipeline(BENCH_CONFIG, 512, 512, param_dtype=torch.float32,
-                                           **kw),
-             "bf16 params": build_pipeline(BENCH_CONFIG, 512, 512, **kw)}
-    fp32, twin = pipes["fp32 params"], pipes["bf16 params"]
-    with torch.no_grad():
-        for a, b in ((fp32.unet, twin.unet), (fp32.vae, twin.vae),
-                     (fp32.depth_model, twin.depth_model)):
-            src = dict(a.named_parameters())
-            for name, p in b.named_parameters():
-                if src[name].dtype != torch.float32 or p.dtype != torch.bfloat16:
-                    raise AssertionError(f"{name}: {src[name].dtype} and {p.dtype}")
-                p.copy_(src[name])
-    gen = torch.Generator(device=dev).manual_seed(0)
-    prompt = torch.randn(1, 77, 768, generator=gen, device=dev)
-    warm = torch.rand(8, 512, 512, 3, generator=gen, device=dev) * 2 - 1
-    frames = torch.randint(0, 256, (PARAM_DTYPE_FRAMES, 512, 512, 3), generator=gen,
-                           device=dev, dtype=torch.uint8)
-
-    def stream_frames(stream, state):
-        outs, latents = [], []
-        for f in frames:
-            state, out = stream(state, f)
-            outs.append(out)
-            latents.append(state.x_t_buffer.clone())
-        return state, outs, latents
-
-    runs = {}
-    for name, built in pipes.items():
-        stream = built.stream
-        models = [m for m in (built.unet, built.vae, built.depth_model) if m is not None]
-        param_bytes = sum(p.numel() * p.element_size() for m in models for p in m.parameters())
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        state, _ = stream.prepare(warm, prompt, seed=2)
-        stream.warm_frame_step(torch.uint8)
-        _build.reset_launch_counts()
-        stream.capture_step(state, torch.uint8)  # the wrappers count one step here
-        launches = {k: v for k, v in _build.launch_counts.items() if v}
-        state, outs, latents = stream_frames(stream, state)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - before
-        prof = profile_steps(torch, stream, state, frames[:4])
-        runs[name] = dict(outs=outs, latents=latents, launches=launches,
-                          kernels_per_step=prof["kernels_per_call"],
-                          device_ms_per_step=prof["device_ms_per_call"],
-                          param_bytes=param_bytes, peak_bytes_net=peak)
-        del state
-        stream.release_graphs()
-    with torch.no_grad():
-        dict(fp32.unet.named_parameters())[control].zero_()
-    state, control_outs, control_latents = stream_frames(
-        fp32.stream, fp32.stream.prepare(warm, prompt, seed=2)[0])
-    del state
-    fp32.stream.release_graphs()
-    a, b = runs["fp32 params"], runs["bf16 params"]
-    for o in a["outs"]:
-        if o.shape != (512, 512, 3) or o.dtype != torch.uint8:
-            raise AssertionError(f"param_dtype=float32: output {tuple(o.shape)} {o.dtype}")
-    result = dict(
-        control=control,
-        rel_rms=[rel_rms(x, y) for x, y in zip(a.pop("outs"), b["outs"])],
-        latents_rel_rms=[rel_rms(x, y) for x, y in zip(a.pop("latents"), b["latents"])],
-        control_rel_rms=[rel_rms(x, y) for x, y in zip(control_outs, b.pop("outs"))],
-        control_latents_rel_rms=[rel_rms(x, y)
-                                 for x, y in zip(control_latents, b.pop("latents"))],
-        **runs)
-    del pipes, fp32, twin, control_outs, control_latents
-    gc.collect()
-    torch.cuda.empty_cache()
+    result = run_all(quick=True)
+    if result.get("pass") is not True:
+        raise AssertionError(f"kernel selftest: {json.dumps(result)}")
     return result
-
-
-def param_dtype_verdict(pd: dict) -> None:
-    """Raises unless ``param_dtype_phase``'s result meets its limits: every
-    frame of the fp32-parameter stream within ``PARAM_DTYPE_RMS_TOL`` of the
-    twin in its outputs and ``PARAM_DTYPE_LATENT_TOL`` in its latents, the
-    control's worst latents past that limit, the same hand-kernel launches
-    a step but no GroupNorm kernel with fp32 parameters, the twin's kernels
-    a step within the main path's."""
-    for key, tol in (("rel_rms", PARAM_DTYPE_RMS_TOL),
-                     ("latents_rel_rms", PARAM_DTYPE_LATENT_TOL)):
-        errs = pd[key]
-        if not all(math.isfinite(e) for e in errs) or max(errs) > tol:
-            raise AssertionError(f"param_dtype=float32 against bf16 parameters: {key} {errs}")
-    if not max(pd["control_latents_rel_rms"]) > PARAM_DTYPE_LATENT_TOL:
-        raise AssertionError(f"the limit {PARAM_DTYPE_LATENT_TOL} misses a dropped "
-                             f"{pd['control']}: {pd['control_latents_rel_rms']}")
-    # fp32 parameters send every GroupNorm to its plain version (the kernel
-    # would round them): the other hand kernels launch alike
-    if "group_norm" in pd["fp32 params"]["launches"] or pd["fp32 params"]["launches"] != {
-            k: v for k, v in pd["bf16 params"]["launches"].items() if k != "group_norm"}:
-        raise AssertionError(f"hand kernels a step differ: {pd}")
-    twin_kernels = pd["bf16 params"]["kernels_per_step"]
-    if isinstance(twin_kernels, float) and twin_kernels > MAIN_PATH_LAUNCHES_PER_STEP:
-        raise AssertionError(f"the default path: {twin_kernels} kernels a step")
 
 
 # ---------------------------------------------------------------------------
@@ -4182,7 +3913,7 @@ def main() -> int:
                              f"{MAIN_PATH_PLAIN_GN} only")
     main_path = headline(result)
     dev_main = result["device_kernels_per_step"]
-    main_keep = list(kept[0])  # phase 4's stream, for phases 13, 14 and 17
+    main_keep = list(kept[0])  # phase 4's stream, for phases 13 and 14
     del result
 
     phase("bf16 cache at full width, no depth (--kv-cache bf16 --no-depth)")
@@ -4351,11 +4082,12 @@ def main() -> int:
               f"round x{r['masked_over_plain']:.3f} the plain one, peak memory "
               f"{r['peak_memory_net_bytes'] / 2**30:.2f} GiB net ({smi})")
 
-    phase("warm start and the tools at full width (phase 17, run before phase 15): a cold "
-          "and a warm start of the bench-default wrapper, each in a process of its own; "
-          "trace_step and profile_stages on phase 4's stream; parity's tiny self-comparison")
-    phase_17(torch, main_keep, main_path, smi)
     del main_keep
+
+    phase("warm start at full width and parity (phase 17, run before phase 15): a cold and "
+          "a warm start of the bench-default wrapper, each in a process of its own; parity's "
+          "tiny self-comparison")
+    phase_17(torch, smi)
 
     phase("demo server over localhost: serve/server.py --sessions 2 at 512x512, two "
           "WebSocket users")
@@ -4384,43 +4116,12 @@ def main() -> int:
     tp = tp_phase(torch, gen, dev, kernels + train_entries, train_shapes, smi)
     report_tp_phase(tp, smi)
 
-    phase("the port bench (phase 19): python -m live2diff_tpu_torch.bench --frames 40 "
-          "--budget 300 from an empty engine directory, then again from the directory it "
-          "primed; param_dtype=float32 at full width")
+    phase("kernel selftest (phase 19): tools/kernel_check.run_all(quick=True), every kernel "
+          "against its plain version on the card")
     t0 = time.perf_counter()
-    benched = bench_phase({k: v for k, v in counts.items() if v})
-    first, again = benched["first"], benched["again"]
-    print(json.dumps(first["result"]))
-    print(json.dumps(again["result"]))
-    r = first["result"]
-    print(f"bench ({first['seconds']:.1f} s): fps_p50 {r['fps_p50']} (chain p50 "
-          f"{r['chain_mean_ms_p50']} ms, mean {r['frame_ms_mean']} ms), beside phase 4's frame "
-          f"p50 {main_path['frame_ms_p50']:.2f} ms; again from the primed directory "
-          f"({again['seconds']:.1f} s): aot_hit {again['result']['aot_hit']}, aot_load_s "
-          f"{again['result']['aot_load_s']}, build_s {again['result']['build_s']} "
-          f"(first: {r['build_s']}) ({smi})")
-    print(f"bench: hand kernels a step {json.dumps(first['launches'])} in both runs, as in "
-          f"phase 4")
-    pd = param_dtype_phase(torch, _build)
-
-    def per_frame(key):
-        return f"{json.dumps([round(e, 6) for e in pd[key]])} (max {max(pd[key]):.6f})"
-
-    print(f"param_dtype=float32 (bf16 compute) against the same weights rounded to bf16, "
-          f"relative RMS per frame: outputs {per_frame('rel_rms')}, at most "
-          f"{PARAM_DTYPE_RMS_TOL}; latents {per_frame('latents_rel_rms')}, at most "
-          f"{PARAM_DTYPE_LATENT_TOL}. Control, {pd['control']} dropped: outputs "
-          f"{per_frame('control_rel_rms')}; latents {per_frame('control_latents_rel_rms')}, "
-          f"more than {PARAM_DTYPE_LATENT_TOL}")
-    for name in ("fp32 params", "bf16 params"):
-        run = pd[name]
-        print(f"{name}: hand kernels a step {json.dumps(run['launches'])}, kernels a step "
-              f"{run['kernels_per_step']}, device ms a step {run['device_ms_per_step']}, "
-              f"parameters {run['param_bytes'] / 2**30:.2f} GiB, peak "
-              f"{run['peak_bytes_net'] / 2**30:.2f} GiB net of the start ({smi})")
-    param_dtype_verdict(pd)
-    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
-    del pd
+    selftest = kernel_selftest_phase()
+    print(json.dumps(selftest))
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s ({smi})")
 
     phase("full width, card against CPU (phase 20): bench.py's configuration with fan-in "
           "weights, 64x64 frames through the DPT-hybrid (prepare, 12 frames), then the UNet at "

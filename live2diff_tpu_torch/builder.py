@@ -191,7 +191,6 @@ def build_pipeline(
     lcm_lora_path: Optional[str] = None,
     lora_dict: Optional[Dict[str, float]] = None,
     unet_overrides: Optional[Dict] = None,
-    param_dtype: Optional[torch.dtype] = None,
     flash_variant: str = DEFAULT_KERNELS.flash_variant,
     gn_kernel_sites: Sites = DEFAULT_KERNELS.gn_kernel_sites,
     ln_kernel_sites: Sites = DEFAULT_KERNELS.ln_kernel_sites,
@@ -208,13 +207,9 @@ def build_pipeline(
     ``use_lcm_lora=False``. ``use_tiny_vae=False`` builds SD-1.5's
     ``AutoencoderKL`` (from the base ``vae/`` folder and the DreamBooth
     checkpoint's VAE part, latents scaled by 0.18215) in place of TAESD.
-    ``param_dtype`` (default ``dtype``) is the dtype every module stores
-    its parameters in, ``dtype`` the one it computes in, as in the JAX
-    builder: a linear or conv layer casts its weight and bias to ``dtype``
-    at use, a GroupNorm or LayerNorm applies its scale and bias as stored
-    (the LayerNorm kernel takes them cast to ``dtype``; a GroupNorm whose
-    parameters are wider than ``dtype`` runs plain). No entry point passes
-    it. Runs on the card unless ``device`` says otherwise.
+    Every module stores its parameters in ``dtype`` and computes in it
+    (a checkpoint's tensors are cast once, as they are loaded). Runs on the
+    card unless ``device`` says otherwise.
 
     The last three arguments are the JAX package's kernel knobs, made per
     pipeline (``ops/choices.py:KernelChoices``), and default to
@@ -235,7 +230,6 @@ def build_pipeline(
       (``spatial``, ``temporal``, ``vit``) that launch the LayerNorm kernel;
       ``"all"`` by default.
     """
-    param_dtype = param_dtype or dtype
     device = resolve_device(device)
     kernels = KernelChoices(flash_variant, gn_kernel_sites, ln_kernel_sites)
     cfg = load_config(config) if isinstance(config, str) else ConfigDict.wrap(config)
@@ -262,21 +256,21 @@ def build_pipeline(
         cfg, missing, use_lcm_lora, lcm_lora_path, lora_dict, timing)
     t0, read_before = time.perf_counter(), timing["read"]
     generator = torch.Generator(device=device).manual_seed(seed)
-    unet = build_module(lambda: UNet3DConditionModel(unet_cfg, kernels), device, param_dtype,
+    unet = build_module(lambda: UNet3DConditionModel(unet_cfg, kernels), device, dtype,
                         generator, unet_sd or None, missing)
     del unet_sd
     if use_tiny_vae:
         taesd_sd = _file_state_dict(cfg.get("taesd_path", DEFAULT_TAESD), missing, timing)
-        vae = build_module(TinyAutoencoder, device, param_dtype, generator, taesd_sd, missing)
+        vae = build_module(TinyAutoencoder, device, dtype, generator, taesd_sd, missing)
     else:
         # SD-1.5's own codec at its own widths, whatever the UNet's overrides
-        vae = build_module(lambda: AutoencoderKL(VAEConfig(), kernels), device, param_dtype,
+        vae = build_module(lambda: AutoencoderKL(VAEConfig(), kernels), device, dtype,
                            generator, vae_state_dict(vae_sd) if vae_sd else None, missing)
     depth_model = None
     if use_depth:
         dpt_sd = _file_state_dict(cfg.get("depth_model_path"), missing, timing)
-        depth_model = build_module(lambda: DPTDepthModel(DPTConfig(), kernels), device,
-                                   param_dtype, generator, dpt_sd, missing)
+        depth_model = build_module(lambda: DPTDepthModel(DPTConfig(), kernels), device, dtype,
+                                   generator, dpt_sd, missing)
 
     text_encoder = tokenizer = None
     tp = cfg.get("third_party_dict", {}) or {}
@@ -285,9 +279,8 @@ def build_pipeline(
         # LDM checkpoints of older transformers lack the "text_model." level
         text_sd = {k if k.startswith("text_model.") else f"text_model.{k}": v
                    for k, v in text_sd.items()}
-        text_encoder = build_module(
-            lambda: CLIPTextModelWithFinalNorm(compute_dtype=dtype), device, param_dtype,
-            generator, text_sd or None, missing)
+        text_encoder = build_module(CLIPTextModelWithFinalNorm, device, dtype, generator,
+                                    text_sd or None, missing)
         if base_path and os.path.isdir(os.path.join(str(base_path), "tokenizer")):
             tokenizer = CLIPTokenizer.from_pretrained(str(base_path))
         else:
@@ -302,7 +295,7 @@ def build_pipeline(
             if ti_sd is not None:
                 tokenizer, table = apply_textual_inversion(tokenizer, table, ti_sd, token)
         if table.shape[0] != text_encoder.config.vocab_size:
-            grown = torch.nn.Embedding(*table.shape, device=device, dtype=param_dtype)
+            grown = torch.nn.Embedding(*table.shape, device=device, dtype=dtype)
             grown.weight.data.copy_(table)
             text_encoder.text_model.embeddings.token_embedding = grown.requires_grad_(False)
             text_encoder.config = dataclasses.replace(text_encoder.config,

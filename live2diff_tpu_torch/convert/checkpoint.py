@@ -13,9 +13,9 @@ modules' ``pos_encoder.pe`` tables, the DPT's unused
 
 A module is built on the ``meta`` device, so nothing is allocated or drawn
 twice: each parameter is written once on its device, from the checkpoint
-(cast to the module's dtype by the copy) or, where no file supplied it,
-from the pipeline's generator as N(0, 0.02^2). Parameters are stored in
-the pipeline's ``param_dtype``.
+(cast to the module's dtype by the copy: a checkpoint is loaded into the
+pipeline's ``dtype``, the one the modules compute in) or, where no file
+supplied it, from the pipeline's generator as N(0, 0.02^2).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def build_module(make: Callable[[], nn.Module], device: torch.device, dtype: tor
                  generator: torch.Generator, sd: Optional[Dict[str, torch.Tensor]] = None,
                  missing: Optional[List[str]] = None) -> nn.Module:
     """``make()`` on the meta device, materialised on ``device`` in ``dtype``
-    (the pipeline's ``param_dtype``: the modules cast at use).
+    (the pipeline's, which the modules compute in).
     With a state dict, its tensors fill the parameters they name (see
     ``load_into``) and the rest are drawn from ``generator``; without one
     every parameter is drawn, in the module's parameter order. Returns the

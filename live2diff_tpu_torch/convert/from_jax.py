@@ -136,8 +136,8 @@ def params_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (leaves convertible by ``np.asarray``) -> a
     state dict for the matching port module on the CPU, each parameter in
-    its own dtype (fp32, or a ``param_dtype`` of bf16). ``key`` names each
-    parameter: ``torch_key`` for the UNet and TAESD, ``dpt_torch_key`` for
-    the DPT."""
+    the JAX leaf's own dtype; loading it into a module casts it to the
+    module's dtype. ``key`` names each parameter: ``torch_key`` for the UNet
+    and TAESD, ``dpt_torch_key`` for the DPT."""
     return {key(path): _to_torch(_convert(np.asarray(leaf), path[-1]))
             for path, leaf in _flatten(params)}

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,22 +19,6 @@ from torch import nn
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..ops.norm import group_norm_act, layer_norm
 from ..parallel.tp import row_linear, tp_copy
-
-
-def at_dtype(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
-    """A parameter at use, in the compute dtype: flax's ``promote_dtype``,
-    which casts a ``Dense`` or ``Conv`` kernel stored in ``param_dtype`` to
-    the module's ``dtype``. The parameter itself (no op at all) where it is
-    stored in the compute dtype already, as it is by default."""
-    return p if p is None or p.dtype == dtype else p.to(dtype)
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` whose weight and bias are cast to the input's dtype (the
-    compute dtype) at use, so they may be stored in another ``param_dtype``."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, at_dtype(self.weight, x.dtype), at_dtype(self.bias, x.dtype))
 
 
 def timestep_embedding(
@@ -65,8 +48,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = Linear(in_channels, time_embed_dim)
-        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))
@@ -97,7 +80,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = Linear(dim, inner * 2)
+        self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hidden, gate = self.proj(x).chunk(2, dim=-1)
@@ -114,7 +97,7 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), Linear(inner, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
     def tp_divides(self, tp: int) -> bool:
         return self.net[2].in_features % tp == 0
@@ -127,9 +110,8 @@ class FusedGroupNorm(nn.Module):
     """GroupNorm over the trailing channel axis of ``[N, ..., C]`` with
     per-N fp32 statistics and an optional fused activation. ``site`` names
     the call site, as in the JAX package; ``kernels`` says whether the
-    GroupNorm kernel may run there (``ops/norm.py:gn_route``). Weight and
-    bias reach the norm in the dtype they are stored in (``param_dtype``),
-    as the JAX module hands them over; the output is in the input's dtype.
+    GroupNorm kernel may run there (``ops/norm.py:gn_route``); the output is
+    in the input's dtype.
     Cut to a slab of whole groups (a sharded resnet's ``norm2``), it
     normalises the groups its weight holds."""
 
@@ -154,8 +136,8 @@ class FusedGroupNorm(nn.Module):
 
 
 class FusedLayerNorm(nn.Module):
-    """LayerNorm over the trailing axis with fp32 statistics; ``site``,
-    ``kernels`` and the parameters' dtype as above."""
+    """LayerNorm over the trailing axis with fp32 statistics; ``site`` and
+    ``kernels`` as above."""
 
     def __init__(self, channels: int, eps: float = 1e-5, site: str = "",
                  kernels: KernelChoices = DEFAULT_KERNELS):

@@ -17,14 +17,12 @@ from torch import nn
 
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..parallel.tp import tp_copy, tp_reduce
-from .layers import FusedGroupNorm, Linear, at_dtype
+from .layers import FusedGroupNorm
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply a Conv2d to ``[N, H, W, C]`` through a channels-last NCHW view,
-    its parameters in x's dtype (``at_dtype``)."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), at_dtype(conv.weight, x.dtype),
-                   at_dtype(conv.bias, x.dtype), conv.stride, conv.padding)
+    """Apply a Conv2d to ``[N, H, W, C]`` through a channels-last NCHW view."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride, conv.padding)
     return out.permute(0, 2, 3, 1)
 
 
@@ -43,13 +41,12 @@ class InflatedConv(nn.Conv2d):
         conv's, with an fp32 output."""
         b, f, h, w, c = x.shape
         x = x.reshape(b * f, h, w, c).permute(0, 3, 1, 2)
-        weight = at_dtype(self.weight, x.dtype)
         if x.dtype == torch.float32:
-            out = F.conv2d(x, weight, None, self.stride, self.padding)
+            out = F.conv2d(x, self.weight, None, self.stride, self.padding)
         else:
             with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                             allow_tf32=True):
-                out = F.conv2d(x.float(), weight.float(), None, self.stride, self.padding)
+                out = F.conv2d(x.float(), self.weight.float(), None, self.stride, self.padding)
         return out.permute(0, 2, 3, 1).reshape(b, f, *out.shape[2:], -1)
 
 
@@ -77,7 +74,7 @@ class ResnetBlock3D(nn.Module):
         self.norm1 = InflatedGroupNorm(groups, in_channels, eps, act="silu", site="resnet",
                                        kernels=kernels)
         self.conv1 = InflatedConv(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = Linear(temb_channels, out_channels)
+        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = InflatedGroupNorm(groups, out_channels, eps, act="silu", site="resnet",
                                        kernels=kernels)
         self.conv2 = InflatedConv(out_channels, out_channels, 3, padding=1)
@@ -100,7 +97,7 @@ class ResnetBlock3D(nn.Module):
             # the unsharded conv rounds its accumulator, and torch adds a
             # cuDNN conv's bias after it (rounding again)
             h = tp_reduce(self.conv2.partial_fp32(self.norm2(h)), self.tp).to(h.dtype)
-            h = h + at_dtype(self.conv2.bias, h.dtype)
+            h = h + self.conv2.bias
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -14,14 +14,12 @@ dense path, with no kernel, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import Linear, at_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +50,8 @@ class CLIPAttention(nn.Module):
         super().__init__()
         self.heads = cfg.num_heads
         h = cfg.hidden_size
-        self.q_proj, self.k_proj = Linear(h, h), Linear(h, h)
-        self.v_proj, self.out_proj = Linear(h, h), Linear(h, h)
+        self.q_proj, self.k_proj = nn.Linear(h, h), nn.Linear(h, h)
+        self.v_proj, self.out_proj = nn.Linear(h, h), nn.Linear(h, h)
 
     def forward(self, x: torch.Tensor, causal_bias: torch.Tensor) -> torch.Tensor:
         def split(t):
@@ -67,8 +65,8 @@ class CLIPAttention(nn.Module):
 class CLIPMLP(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(quick_gelu(self.fc1(x)))
@@ -93,13 +91,10 @@ class CLIPEmbeddings(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
 
-    def forward(self, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None
-                ) -> torch.Tensor:
-        """Token plus position embeddings, each cast to ``dtype`` (default:
-        the weights') before the sum, as the JAX ``Embed`` gives its rows."""
-        dtype = dtype or self.token_embedding.weight.dtype
-        tok = at_dtype(self.token_embedding(input_ids), dtype)
-        return tok + at_dtype(self.position_embedding.weight[None, :input_ids.shape[1]], dtype)
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token plus position embeddings."""
+        return (self.token_embedding(input_ids)
+                + self.position_embedding.weight[None, :input_ids.shape[1]])
 
 
 class CLIPEncoder(nn.Module):
@@ -117,26 +112,23 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModelWithFinalNorm(nn.Module):
-    """The CLIP text transformer; ``forward`` encodes with clip_skip.
-    ``compute_dtype`` is the activations' dtype; by default the weights'."""
+    """The CLIP text transformer; ``forward`` encodes with clip_skip."""
 
-    def __init__(self, config: CLIPTextConfig = CLIPTextConfig(),
-                 compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
         super().__init__()
         self.config = config
-        self.compute_dtype = compute_dtype
         self.text_model = CLIPTextTransformer(config)
 
     def forward(self, input_ids: torch.Tensor, clip_skip: int = 0) -> torch.Tensor:
         """``[B, S]`` token ids -> the prompt embedding ``[B, S, hidden]`` in
-        the compute dtype.
+        the weights' dtype.
 
         clip_skip=0: the last layer, then the final LayerNorm.
         clip_skip=k>=1: hidden_states[-(k+1)] (hidden_states[0] being the
         embeddings), then the final LayerNorm."""
         tm = self.text_model
         s = input_ids.shape[1]
-        x = tm.embeddings(input_ids, self.compute_dtype)
+        x = tm.embeddings(input_ids)
         causal = torch.triu(torch.full((s, s), float("-inf"), device=x.device), 1)[None, None]
         # hidden_states has num_layers + 1 entries; run only the layers needed
         n_layers = len(tm.encoder.layers) - (clip_skip if clip_skip >= 1 else 0)

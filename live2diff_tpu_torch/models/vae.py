@@ -17,9 +17,8 @@ rounding to the compute dtype, as the JAX module's fp32 ``nn.GroupNorm``
 cast back (whose SiLU then ran on the rounded value). On the card a bf16
 call takes the GroupNorm kernel (``csrc/group_norm.cu``), which writes
 NHWC-contiguous output for the next conv; a call stays on the plain
-version on the CPU, in fp32, with a gradient, at a site the pipeline's
-``KernelChoices`` leaves out, and where the norm's weight or bias is stored
-wider than x (``param_dtype=float32``), which the kernel would round.
+version on the CPU, in fp32, with a gradient, and at a site the
+pipeline's ``KernelChoices`` leaves out.
 ``codec_route_counts`` counts those GroupNorms (``kl_group_norm``), the
 ones that took the kernel (``kl_group_norm_kernel``) and the attentions
 where they run eagerly or are captured (a graph's replay runs no Python),
@@ -47,7 +46,6 @@ from torch import nn
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..ops.conv import conv3x3
 from ..ops.norm import group_norm_act, norm_route_counts
-from .layers import Linear, at_dtype
 from .resnet import conv_nhwc
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
@@ -79,9 +77,8 @@ class VAEConfig:
 
 class VAEGroupNorm(nn.GroupNorm):
     """GroupNorm over ``[N, H, W, C]``, eps 1e-6, then ``act`` (``"none"`` or
-    ``"silu"``), computed in fp32 and rounded once to the input's dtype;
-    the parameters are applied as stored (see the module's docstring for
-    the route)."""
+    ``"silu"``), computed in fp32 and rounded once to the input's dtype
+    (see the module's docstring for the route)."""
 
     def __init__(self, groups: int, channels: int, act: str = "none",
                  kernels: KernelChoices = DEFAULT_KERNELS):
@@ -127,10 +124,10 @@ class VAEAttention(nn.Module):
                  kernels: KernelChoices = DEFAULT_KERNELS):
         super().__init__()
         self.group_norm = VAEGroupNorm(groups, channels, kernels=kernels)
-        self.to_q = Linear(channels, channels)
-        self.to_k = Linear(channels, channels)
-        self.to_v = Linear(channels, channels)
-        self.to_out = nn.ModuleList([Linear(channels, channels)])
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         codec_route_counts["kl_attention"] += 1
@@ -297,8 +294,7 @@ class FusedConv3x3(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5**0.5)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor = None) -> torch.Tensor:
-        return conv3x3(x, at_dtype(self.weight, x.dtype), at_dtype(self.bias, x.dtype), skip,
-                       self.relu, self.stride)
+        return conv3x3(x, self.weight, self.bias, skip, self.relu, self.stride)
 
 
 class FusedConv3x3S2(FusedConv3x3):

@@ -13,14 +13,13 @@ does a call in one launch (``ops/choices.py`` gives the measured gain).
 Which implementation a call takes is decided from what the call can
 observe, by ``gn_route`` and ``ln_route`` (pure functions of the shape,
 dtype, device type, gradient need, site, choices and, for GroupNorm, the
-parameters' dtype and the card's shared memory):
+card's shared memory):
 
 * the kernel where x is a bf16 CUDA tensor, no gradient is needed through
   the call, the pipeline's choices name the site and the shape conditions
   hold: for ``group_norm_act`` (``csrc/group_norm.cu``, replacing the
-  Pallas ``_group_norm_kernel``) gamma and beta stored in x's dtype,
-  ``C % groups == 0``, ``C % 8 == 0`` (the JAX package's,
-  ``norm.py:140-147``), ``C <= 16384`` and a plan
+  Pallas ``_group_norm_kernel``) ``C % groups == 0``, ``C % 8 == 0`` (the
+  JAX package's, ``norm.py:140-147``), ``C <= 16384`` and a plan
   (``group_norm_plan``: a row of C fits a CTA's shared memory beside gamma,
   beta and the work area); for ``layer_norm`` (``csrc/layer_norm.cu``,
   replacing the Pallas ``_layer_norm_kernel``) the JAX package's
@@ -36,11 +35,6 @@ a sample into tiles of whole rows and streams the tiles through shared
 memory where they do not all fit, so the port has no such cap: the UNet's
 ``[2, 4096, 960]``, prepare's 8-frame slabs and the KL codec's GroupNorms
 (to ``[2, 262144, 128]`` at 512x512) take the kernel.
-
-The GroupNorm kernel takes gamma and beta in x's dtype. Parameters stored
-wider (``param_dtype=float32``) are never rounded to fit it: the call runs
-plain and applies them in fp32 as they are, as the JAX package's Pallas
-kernel applies its own (``norm.py:94-95``).
 
 ``norm_route_counts`` counts the calls by norm and route where the route
 is decided, so a captured step's replays add nothing. ``group_norm_plan``
@@ -88,16 +82,15 @@ norm_route_counts: Dict[str, int] = {"gn_kernel": 0, "gn_plain": 0, "ln_kernel":
                                      "ln_plain": 0}
 
 
-def gn_route(t: int, c: int, groups: int, dtype: torch.dtype, param_dtype: torch.dtype,
-             device_type: str, grad: bool, site: str, kernels: KernelChoices,
-             smem_bytes: Optional[int] = None, device_index: int = 0) -> str:
+def gn_route(t: int, c: int, groups: int, dtype: torch.dtype, device_type: str, grad: bool,
+             site: str, kernels: KernelChoices, smem_bytes: Optional[int] = None,
+             device_index: int = 0) -> str:
     """``"gn_kernel"`` or ``"gn_plain"``: where ``group_norm_act`` sends a
-    call on x ``[B, t, c]`` in ``dtype`` with gamma and beta in
-    ``param_dtype`` (see the module's docstring). ``smem_bytes``: the shared
-    memory a block may opt into on the card; None reads card
-    ``device_index``'s, once every other condition holds."""
+    call on x ``[B, t, c]`` in ``dtype`` (see the module's docstring).
+    ``smem_bytes``: the shared memory a block may opt into on the card; None
+    reads card ``device_index``'s, once every other condition holds."""
     if (
-        device_type != "cuda" or dtype != torch.bfloat16 or param_dtype != dtype or grad
+        device_type != "cuda" or dtype != torch.bfloat16 or grad
         or not kernels.gn_kernel_at(site) or c % groups or c % 8 or c > GN_MAX_CHANNELS
     ):
         return "gn_plain"
@@ -326,13 +319,10 @@ def group_norm_act(
 ) -> torch.Tensor:
     """GroupNorm over [B, T, C] with per-B fp32 statistics, optional
     SiLU/ReLU: the kernel where ``gn_route`` says so, the plain version
-    elsewhere; decided before any launch. gamma and beta may be stored in
-    another dtype than x (``param_dtype``): the call then runs plain, which
-    applies them in fp32 as they are."""
+    elsewhere; decided before any launch."""
     _, t, c = x.shape
-    route = gn_route(t, c, groups, x.dtype, torch.promote_types(gamma.dtype, beta.dtype),
-                     x.device.type, _build.needs_grad(x, gamma, beta), site, kernels,
-                     device_index=x.device.index or 0)
+    route = gn_route(t, c, groups, x.dtype, x.device.type, _build.needs_grad(x, gamma, beta),
+                     site, kernels, device_index=x.device.index or 0)
     norm_route_counts[route] += 1
     if route == "gn_kernel":
         return group_norm(*map(_aligned, (x, gamma, beta)), groups, eps, act)
@@ -401,15 +391,11 @@ def layer_norm(
     kernels: KernelChoices = DEFAULT_KERNELS,
 ) -> torch.Tensor:
     """LayerNorm over the trailing axis, fp32 centred statistics, per row:
-    the kernel where ``ln_route`` says so, the plain version elsewhere.
-    gamma and beta in another dtype than x: the plain version applies them
-    in fp32 as they are, the kernel, which takes them in x's dtype, after a
-    cast."""
+    the kernel where ``ln_route`` says so, the plain version elsewhere."""
     c = x.shape[-1]
     grad = _build.needs_grad(x, gamma, beta)
     route = ln_route(x.numel(), c, x.dtype, x.device.type, grad, site, kernels)
     norm_route_counts[route] += 1
     if route == "ln_plain":
         return layer_norm_plain(x, gamma, beta, eps)
-    gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
     return layer_norm_rows(x.reshape(-1, c).contiguous(), gamma, beta, eps).reshape(x.shape)

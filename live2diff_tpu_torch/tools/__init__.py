@@ -9,20 +9,17 @@ CPU ops, not a device) and exposes its work as a function that
   on the host.
 * ``parity``: build from a style config and its weights, stream a video as
   the CLI does and score the output against reference frames (``run``).
-* ``profile_stages``: the codec, the depth branch and the stream-batch UNet
-  each timed alone, beside the captured step (``profile_stages``).
-* ``trace_step``: a profile of replays of the captured step: kernels by
-  device time, families, coarse buckets and the idle and host gaps around
-  the device work, each kernel in the frame that launched it (``trace``,
-  ``aggregate``).
 * ``aot_probe``: the start-up split of a cold and a warm start from a
   primed engine directory (``prime``, ``load``).
 * ``kernel_check``: every CUDA kernel against its plain version on the
-  card, at the JAX file's shapes and tolerances (``run_all``); the port
-  bench's ``kernel_selftest`` row.
+  card, at the JAX file's shapes and tolerances (``run_all``), which
+  ``chip_smoke.py`` runs.
 
 The JAX tools without a counterpart here:
 
+* ``profile_stages.py`` and ``trace_step.py`` (and the root ``bench.py``):
+  the port's speed is measured by ``benchmark/run.py`` alone, whose traced
+  run (``--trace 1``) gives each step's stages and its kernels by family.
 * ``dump_hlo.py`` and ``compile_probe.py`` read XLA programs; the port has
   none.
 * ``op_trace.py`` is ``scripts/kernel_ab.py --device`` and

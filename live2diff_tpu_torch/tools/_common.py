@@ -1,12 +1,11 @@
-"""What the tools share: bench.py's configuration, the tiny pipeline, the
-card's line and seeded inputs."""
+"""What the tools share: bench.py's configuration, the tiny pipeline and the
+card's line."""
 
 from __future__ import annotations
 
 import subprocess
-from typing import Sequence, Tuple
+from typing import Sequence
 
-import numpy as np
 import torch
 
 # bench.py's make_config([30, 40]) with the steps as an argument
@@ -64,16 +63,3 @@ def build_bench_pipeline(device, height: int = 512, width: int = 512,
                           kv_cache_dtype=kv_cache, output_uint8=True, seed=seed, device=device,
                           use_depth=use_depth, flash_variant=FLASH_VARIANT[spatial_qk], **kw)
 
-
-def inputs(stream, frames: int, sessions: int = 1, seed: int = 0
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Seeded inputs on the stream's device: a ``[S, 77, D]`` prompt
-    embedding, ``[S, 8, H, W, 3]`` warmup frames in [-1, 1] and ``[N, S, H,
-    W, 3]`` uint8 frames (S = ``sessions``)."""
-    rng = np.random.RandomState(seed)
-    h, w = stream.cfg.height, stream.cfg.width
-    dim = stream.unet.config.cross_attention_dim
-    prompt = rng.randn(sessions, 77, dim).astype(np.float32)
-    warm = rng.rand(sessions, 8, h, w, 3).astype(np.float32) * 2 - 1
-    clip = rng.randint(0, 256, (frames, sessions, h, w, 3)).astype(np.uint8)
-    return tuple(torch.from_numpy(a).to(stream.device) for a in (prompt, warm, clip))

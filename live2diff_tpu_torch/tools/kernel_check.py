@@ -4,9 +4,8 @@ torch version. The port's counterpart of ``tools/kernel_check.py``.
     python -m live2diff_tpu_torch.tools.kernel_check [--quick]
 
 prints one JSON line ``{"metric": "kernel_selftest", <check>: {"max_rel_err",
-"tol", "ok"}, ..., "pass": bool}`` and exits non-zero on a failure; the
-port bench (``live2diff_tpu_torch/bench.py``) calls ``run_all(quick=True)``
-for its ``kernel_selftest`` row.
+"tol", "ok"}, ..., "pass": bool}`` and exits non-zero on a failure;
+``chip_smoke.py`` calls ``run_all(quick=True)`` on the card.
 
 The checks, shapes and tolerances are those of the JAX file
 (``tools/kernel_check.py:42-200``): the flash entries (s-major, d-major,
@@ -40,7 +39,7 @@ import numpy as np
 import torch
 
 EXACT_TOL = 2.5e-2  # bf16 rounding noise, elementwise relative-to-range
-INT8_TOL = 8e-2  # quantisation by design; the bench's psnr row checks end to end
+INT8_TOL = 8e-2  # quantisation by design
 
 # the nine kernels (``ops/_build.py`` launch counters) the checks reach
 KERNELS = ("flash_attention_smajor", "flash_attention", "flash_attention_int8",

@@ -8,7 +8,9 @@ random on either side and the weights can be compared exactly. Then both
 streams run ``prepare`` and 10 frames with the JAX noise replayed into the
 port, at tests/test_torch_pipeline.py's fp32 tolerance. Also: a LoRA's
 strength changed at run time equals a fresh build at that strength, in
-place; and the stand-in prompt embedding does not depend on the process.
+place; the stand-in prompt embedding does not depend on the process; and
+every module the builder makes stores its parameters in the pipeline's one
+dtype.
 """
 
 from __future__ import annotations
@@ -24,12 +26,19 @@ import pytest
 import torch
 
 from _torch_checkpoints import TINY_OVERRIDES, config_without_paths, write_checkpoints
-from _torch_parity import rel_err, to_np
+from _torch_parity import TINY_DPT, TINY_UNET, VAE_HIDDEN, rel_err, to_np
 from live2diff_tpu.builder import build_pipeline as jax_build_pipeline
+from live2diff_tpu_torch import builder
 from live2diff_tpu_torch.builder import build_pipeline
 from live2diff_tpu_torch.convert.from_jax import params_from_jax
+from live2diff_tpu_torch.models.midas import DPTConfig, DPTDepthModel
+from live2diff_tpu_torch.models.text_encoder import CLIPTextConfig, CLIPTextModelWithFinalNorm
+from live2diff_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+from live2diff_tpu_torch.models.vae import AutoencoderKL, TinyAutoencoder, VAEConfig
 from live2diff_tpu_torch.wrapper import StreamV2VWrapper
 from test_torch_pipeline import FP32_TOL, _frames, _normal, _Replay
+from test_torch_text import TINY_CLIP
+from test_torch_vae_kl import NARROW
 
 H = W = 64
 LH, LW = H // 8, W // 8
@@ -184,3 +193,27 @@ def test_stand_in_embedding_is_the_same_in_every_process():
     emb = stand_in_prompt_embedding("a cat in the rain")
     assert emb.shape == (1, 77, 768) and emb.dtype == np.float32
     assert not np.array_equal(emb, stand_in_prompt_embedding("a dog"))
+
+
+# each module the builder makes, at the tiny widths of the CPU tests
+MODULES = {
+    "unet": lambda: UNet3DConditionModel(UNetConfig(**TINY_UNET)),
+    "taesd": lambda: TinyAutoencoder(hidden=VAE_HIDDEN),
+    "kl": lambda: AutoencoderKL(VAEConfig(**NARROW)),
+    "dpt": lambda: DPTDepthModel(DPTConfig(**TINY_DPT)),
+    "clip": lambda: CLIPTextModelWithFinalNorm(CLIPTextConfig(**TINY_CLIP)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("module", sorted(MODULES))
+def test_every_parameter_is_stored_in_the_compute_dtype(module, dtype):
+    """One dtype per pipeline: ``build_module`` stores every parameter and
+    floating buffer in the dtype the module computes in, so no layer casts
+    a weight at use."""
+    m = builder.build_module(MODULES[module], torch.device("cpu"), dtype,
+                             torch.Generator().manual_seed(0))
+    tensors = dict(m.named_parameters())
+    tensors.update((k, b) for k, b in m.named_buffers() if b.is_floating_point())
+    assert tensors
+    assert {k: t.dtype for k, t in tensors.items() if t.dtype != dtype} == {}

@@ -68,10 +68,9 @@ def test_importing_the_port_pulls_in_no_optional_host_package():
     assert not offenders, offenders
 
 
-def test_the_scan_covers_the_bench_and_kernel_check():
+def test_the_scan_covers_kernel_check_and_chip_smoke():
     scanned = {os.path.relpath(path, REPO) for path in _port_sources()}
-    assert {"live2diff_tpu_torch/bench.py", "live2diff_tpu_torch/tools/kernel_check.py",
-            "chip_smoke.py"} <= scanned
+    assert {"live2diff_tpu_torch/tools/kernel_check.py", "chip_smoke.py"} <= scanned
 
 
 def test_port_sources_import_no_jax():
@@ -251,8 +250,8 @@ def test_importing_the_warm_start_and_the_tools_pulls_in_no_jax_and_no_plotting(
         "names = ['live2diff_tpu_torch.aot', 'live2diff_tpu_torch.utils.timing',\n"
         "         'live2diff_tpu_torch.utils.attn_vis']\n"
         "names += [m.name for m in pkgutil.iter_modules(tools.__path__, tools.__name__ + '.')]\n"
-        "assert {'live2diff_tpu_torch.tools.' + n for n in ('psnr', 'parity', 'profile_stages',"
-        " 'trace_step', 'aot_probe')} <= set(names), names\n"
+        "assert {'live2diff_tpu_torch.tools.' + n for n in ('psnr', 'parity', 'aot_probe')}"
+        " <= set(names), names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax',"

@@ -13,6 +13,9 @@ inversion against the JAX package's on the same inputs.
   fp32 products in the same order, so its results are compared exactly.
   A 1x1 conv LoRA, which the JAX merge refuses (its einsum repeats an
   output subscript), is held to the direct product.
+* a checkpoint written in fp32 and loaded into a bf16 build: every
+  parameter is bf16, and each one the file names equals the file's value
+  rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ import pytest
 import torch
 from safetensors.torch import save_file as torch_save_file
 
+from _torch_checkpoints import (
+    TINY_OVERRIDES, config_without_paths, draw, module_shapes, save_file, write_checkpoints,
+)
+from _torch_parity import TINY_DPT
 from live2diff_tpu.convert.ldm import convert_ldm_checkpoint as jax_convert_ldm
 from live2diff_tpu.convert.lora import lora_delta_state_dict as jax_lora_delta
 from live2diff_tpu.convert.lora import merge_lora_into_state_dict as jax_merge
@@ -30,13 +37,17 @@ from live2diff_tpu.convert.textual_inversion import (
 )
 from live2diff_tpu.convert.torch_to_flax import load_state_dict_file as jax_load
 from live2diff_tpu.utils.tokenizer import CLIPTokenizer as JaxTokenizer
+from live2diff_tpu_torch.builder import build_module, build_pipeline
 from live2diff_tpu_torch.convert.ldm import convert_ldm_checkpoint
 from live2diff_tpu_torch.convert.lora import lora_delta_state_dict, merge_lora_into_state_dict
 from live2diff_tpu_torch.convert.state_dict import load_state_dict_file, read_safetensors
 from live2diff_tpu_torch.convert.textual_inversion import (
     apply_textual_inversion, extract_ti_embeddings,
 )
+from live2diff_tpu_torch.models.midas import DPTConfig, DPTDepthModel
+from live2diff_tpu_torch.models.text_encoder import CLIPTextConfig, CLIPTextModelWithFinalNorm
 from live2diff_tpu_torch.utils.tokenizer import CLIPTokenizer
+from test_torch_text import TINY_CLIP
 
 SAFETENSORS_DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.int64, torch.int32,
                       torch.bool, torch.float64, torch.int8, torch.uint8, torch.int16]
@@ -330,3 +341,71 @@ def test_textual_inversion_matches_jax(layout):
     # a second application adds nothing: the tokens exist
     ttok, again = apply_textual_inversion(ttok, ttable, t_sd, "Emb")
     assert again.shape == ttable.shape
+
+
+# ---------------------------------------------------------------------------
+# an fp32 file into a bf16 build
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope="module")
+def bf16_pipeline(tmp_path_factory):
+    """The tiny UNet, its motion module and TAESD, built in bf16 by
+    ``build_pipeline`` from the fp32 files ``write_checkpoints`` writes (no
+    DreamBooth, LoRA or LCM-LoRA, which would change the values)."""
+    cfg = write_checkpoints(tmp_path_factory.mktemp("fp32"))
+    built = build_pipeline({**config_without_paths(cfg), "third_party_dict": {}}, 64, 64,
+                           dtype=BF16, device="cpu", use_depth=False, use_lcm_lora=False,
+                           unet_overrides=TINY_OVERRIDES)
+    return cfg, built
+
+
+def _file(path, keep=lambda k: True):
+    """A checkpoint as the builder reads it, with the keys ``keep`` takes."""
+    sd = load_state_dict_file(str(path))
+    return {k.removeprefix("module."): v for k, v in sd.items() if keep(k)}
+
+
+def _built_alone(tmp_path, make, name):
+    """``make``'s module written in fp32 to ``name`` under ``tmp_path``, then
+    built from that file in bf16 by the builder's ``build_module``."""
+    rs = np.random.RandomState(3)
+    path = str(tmp_path / name)
+    save_file({k: draw(k, s, rs) for k, s in module_shapes(make).items()}, path)
+    sd = load_state_dict_file(path)
+    missing = []
+    module = build_module(make, torch.device("cpu"), BF16, torch.Generator().manual_seed(0),
+                          sd, missing)
+    assert missing == []
+    return sd, module
+
+
+@pytest.mark.parametrize("kind", ["unet", "motion", "taesd", "dpt", "text"])
+def test_an_fp32_checkpoint_loads_as_its_bf16_rounding(bf16_pipeline, tmp_path, kind):
+    cfg, built = bf16_pipeline
+    if kind == "unet":
+        sd = _file(f"{cfg['pretrained_model_path']}/unet/diffusion_pytorch_model.safetensors")
+        module = built.unet
+    elif kind == "motion":
+        sd = _file(cfg["motion_module_path"], keep=lambda k: k.split(".")[-1] not in (
+            "grid", "pe"))
+        module = built.unet
+    elif kind == "taesd":
+        sd, module = _file(cfg["taesd_path"]), built.vae
+    elif kind == "dpt":
+        sd, module = _built_alone(tmp_path, lambda: DPTDepthModel(DPTConfig(**TINY_DPT)),
+                                  "dpt_hybrid_384.pt")
+    else:
+        sd, module = _built_alone(
+            tmp_path, lambda: CLIPTextModelWithFinalNorm(CLIPTextConfig(**TINY_CLIP)),
+            "model.safetensors")
+    params = dict(module.named_parameters())
+    assert {k: p.dtype for k, p in params.items() if p.dtype != BF16} == {}
+    assert sd and set(sd) <= set(params)
+    assert {v.dtype for v in sd.values()} == {torch.float32}
+    # the file's values are not bf16 numbers, so the rounding shows
+    assert any(not torch.equal(v.to(BF16).float(), v) for v in sd.values())
+    for k, v in sd.items():
+        assert torch.equal(params[k], v.to(BF16)), k

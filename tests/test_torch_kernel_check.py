@@ -1,8 +1,8 @@
 """``live2diff_tpu_torch/tools/kernel_check.py`` on the CPU: its plan of
 checks against the JAX file's, its metric against the JAX ``_relerr``, and
 its refusal to run where the wrappers run their plain versions. The checks
-themselves run on the card (``chip_smoke.py`` phase 19, through the bench's
-``kernel_selftest`` row)."""
+themselves run on the card (``chip_smoke.py`` phase 19 calls
+``run_all(quick=True)``)."""
 
 from __future__ import annotations
 

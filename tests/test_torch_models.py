@@ -255,8 +255,7 @@ def test_unet_warmup_with_int8_flash_and_group_norm_kernels_matches_jax(monkeypa
         c = x.shape[-1]
         n = x.shape[0] * x.shape[1] if isinstance(mod, tres.InflatedGroupNorm) else x.shape[0]
         norms.append(tnorm.gn_route(x.numel() // (n * c), c, mod.num_groups, torch.bfloat16,
-                                    torch.bfloat16, "cuda", False, mod.site, mod.kernels,
-                                    smem_bytes=232448))
+                                    "cuda", False, mod.site, mod.kernels, smem_bytes=232448))
 
     for m in tunet.modules():
         if isinstance(m, tl.FusedGroupNorm):

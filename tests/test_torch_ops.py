@@ -474,7 +474,7 @@ def test_group_norm_matches_pallas_interpret(monkeypatch, b, t, c, act):
                                    site="resnet")
     out = tnorm.group_norm(T(x), T(g), T(bt), groups=32, eps=1e-5, act=act)
     assert jax_calls == [1]
-    assert tnorm.gn_route(t, c, 32, torch.bfloat16, torch.bfloat16, "cuda", False, "resnet",
+    assert tnorm.gn_route(t, c, 32, torch.bfloat16, "cuda", False, "resnet",
                           KernelChoices(gn_kernel_sites="all"),
                           smem_bytes=H100_SMEM) == "gn_kernel"
     assert rel_err(out.numpy(), ref) < 1e-5
@@ -510,7 +510,7 @@ def test_group_norm_site_dispatch(monkeypatch, sites, site, t, c, taken, groups)
     kernels = KernelChoices(gn_kernel_sites=sites)
     out = tnorm.group_norm_act(x, torch.ones(c), torch.zeros(c), groups=groups, act="silu",
                                site=site, kernels=kernels)
-    on_card = tnorm.gn_route(t, c, groups, BF16, BF16, "cuda", False, site, kernels,
+    on_card = tnorm.gn_route(t, c, groups, BF16, "cuda", False, site, kernels,
                              smem_bytes=H100_SMEM)
     assert on_card == ("gn_kernel" if taken else "gn_plain") and calls == []
     torch.testing.assert_close(out, tnorm.group_norm_plain(x, torch.ones(c), torch.zeros(c),
@@ -548,7 +548,7 @@ def test_group_norm_gate_matches_jax(monkeypatch, t, c, groups, jax_takes):
     kernels = KernelChoices(gn_kernel_sites="all")
     out = tnorm.group_norm_act(T(x), T(g), T(bt), groups=groups, eps=1e-5, act="silu",
                                site="resnet", kernels=kernels)
-    on_card = tnorm.gn_route(t, c, groups, BF16, BF16, "cuda", False, "resnet", kernels,
+    on_card = tnorm.gn_route(t, c, groups, BF16, "cuda", False, "resnet", kernels,
                              smem_bytes=H100_SMEM)
     assert len(jax_calls) == int(jax_takes)
     assert (on_card == "gn_kernel") == (c % 8 == 0 and c <= tnorm.GN_MAX_CHANNELS)
@@ -677,35 +677,31 @@ def test_norm_route(norm, shape, dtype, device, grad, site, kernels, kernel):
     hold; the plain version for every other call. GroupNorm on an H100's
     shared memory, which a card call reads from its card."""
     if norm == "gn":
-        route = tnorm.gn_route(*shape, dtype, dtype, device, grad, site, kernels,
+        route = tnorm.gn_route(*shape, dtype, device, grad, site, kernels,
                                smem_bytes=H100_SMEM)
     else:
         route = tnorm.ln_route(*shape, dtype, device, grad, site, kernels)
     assert route == f"{norm}_{'kernel' if kernel else 'plain'}"
 
 
-@pytest.mark.parametrize("c,groups,smem,param_dtype,kernel", [
-    (16384, 32, H100_SMEM, BF16, True),  # the widest row GN_MAX_CHANNELS allows fits an H100
-    (16384, 32, 48 * 1024, BF16, False),  # no row fits 48 KB beside gamma, beta, work area
-    (4096, 32, 48 * 1024, BF16, True),  # one row of 4096 does
-    (128, 32, H100_SMEM, BF16, True),  # parameters stored in x's dtype: nothing to round
-    (128, 32, H100_SMEM, F32, False),  # fp32 parameters, which the kernel would round: plain
+@pytest.mark.parametrize("c,groups,smem,kernel", [
+    (16384, 32, H100_SMEM, True),  # the widest row GN_MAX_CHANNELS allows fits an H100
+    (16384, 32, 48 * 1024, False),  # no row fits 48 KB beside gamma, beta, work area
+    (4096, 32, 48 * 1024, True),  # one row of 4096 does
+    (128, 32, H100_SMEM, True),  # the KL codec's narrowest GroupNorm
 ])
-def test_gn_route_takes_the_kernels_plan_and_params_in_x_dtype(c, groups, smem, param_dtype,
-                                                               kernel):
+def test_gn_route_takes_the_kernels_plan(c, groups, smem, kernel):
     """A bf16 card call takes the kernel only where ``group_norm_plan`` finds
-    a plan (a row of C fits a CTA's shared memory), whatever T, and only
-    where its parameters are stored in bf16."""
+    a plan (a row of C fits a CTA's shared memory), whatever T."""
     for t in (1, 4096, 262144):
-        route = tnorm.gn_route(t, c, groups, BF16, param_dtype, "cuda", False, "vae", ALL,
-                               smem_bytes=smem)
+        route = tnorm.gn_route(t, c, groups, BF16, "cuda", False, "vae", ALL, smem_bytes=smem)
         assert route == ("gn_kernel" if kernel else "gn_plain")
-    if param_dtype == BF16 and not kernel:
+    if not kernel:
         with pytest.raises(ValueError):
             tnorm.group_norm_plan(1, 64, c, groups, H100_SMS, smem)
     if kernel:
         assert tnorm.group_norm_plan(1, 262144, c, groups, H100_SMS, smem).ctas >= 1
-    assert tnorm.gn_route(0, c, groups, BF16, BF16, "cuda", False, "vae", ALL,
+    assert tnorm.gn_route(0, c, groups, BF16, "cuda", False, "vae", ALL,
                           smem_bytes=smem) == "gn_plain"  # no rows: no plan
 
 

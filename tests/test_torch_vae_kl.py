@@ -119,13 +119,13 @@ def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(a), e - 8)
 
 
-def _norm_module(c, act, dtype, seed, param_dtype=None):
+def _norm_module(c, act, dtype, seed):
     torch.manual_seed(seed)
     m = VAEGroupNorm(4 if c < 64 else 32, c, act)
     with torch.no_grad():
         m.weight.copy_(1 + 0.2 * torch.randn(c))
         m.bias.copy_(0.3 * torch.randn(c))
-    return m.to(param_dtype or dtype).eval()
+    return m.to(dtype).eval()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -157,35 +157,30 @@ def test_group_norm_matches_the_formula_it_replaced(dtype, act):
         assert tnorm.norm_route_counts["gn_plain"] == routes["gn_plain"] + 1
 
 
-@pytest.mark.parametrize("param_dtype,kernel", [(torch.bfloat16, True),
-                                                 (torch.float32, False)])
-def test_group_norm_takes_the_kernel_only_with_parameters_in_x_dtype(monkeypatch, param_dtype,
-                                                                    kernel):
+def test_group_norm_takes_the_kernel_on_the_card(monkeypatch):
     """Routed as a bf16 call on an H100 would be (``gn_route`` told the device
     is a card; on the CPU the kernel's wrapper runs its plain version), the
-    module takes the kernel where its weight and bias are stored in bf16,
-    and stays plain where they are fp32, which the kernel would round; the
-    output is the plain version's either way, and the codec counts the
-    route."""
+    module takes the kernel; the output is the plain version's, and the
+    codec counts the route."""
     real_route, real_gn = tnorm.gn_route, tnorm.group_norm
     sites, launches = [], []
 
-    def as_on_card(t, c, groups, dtype, param_dtype, device_type, grad, site, *args, **kw):
+    def as_on_card(t, c, groups, dtype, device_type, grad, site, *args, **kw):
         sites.append(site)
-        return real_route(t, c, groups, dtype, param_dtype, "cuda", grad, site, *args,
+        return real_route(t, c, groups, dtype, "cuda", grad, site, *args,
                           **{**kw, "smem_bytes": 232448})
 
     monkeypatch.setattr(tnorm, "gn_route", as_on_card)
     monkeypatch.setattr(tnorm, "group_norm",
                         lambda *a, **kw: (launches.append(a[0].shape), real_gn(*a, **kw))[1])
-    m = _norm_module(128, "silu", torch.bfloat16, 7, param_dtype)
+    m = _norm_module(128, "silu", torch.bfloat16, 7)
     x = (torch.randn(1, 16, 16, 128) * 3 + 1).to(torch.bfloat16)
     codec = dict(codec_route_counts)
     with torch.no_grad():
         out = m(x)
     assert set(sites) == {VAE_SITE}
-    assert launches == ([(1, 256, 128)] if kernel else [])
-    assert codec_route_counts["kl_group_norm_kernel"] == codec["kl_group_norm_kernel"] + kernel
+    assert launches == [(1, 256, 128)]
+    assert codec_route_counts["kl_group_norm_kernel"] == codec["kl_group_norm_kernel"] + 1
     assert codec_route_counts["kl_group_norm"] == codec["kl_group_norm"] + 1
     ref = tnorm.group_norm_plain(x.reshape(1, 256, 128), m.weight, m.bias, 32, 1e-6, "silu")
     assert torch.equal(out, ref.reshape(x.shape))
