@@ -15,7 +15,8 @@ A module is built on the ``meta`` device, so nothing is allocated or drawn
 twice: each parameter is written once on its device, from the checkpoint
 (cast to the module's dtype by the copy: a checkpoint is loaded into the
 pipeline's ``dtype``, the one the modules compute in) or, where no file
-supplied it, from the pipeline's generator as N(0, 0.02^2).
+supplied it, from the pipeline's generator as N(0, 0.02^2). Then each
+``nn.Conv2d`` weight is laid out channels-last (``channels_last_convs_``).
 """
 
 from __future__ import annotations
@@ -73,6 +74,20 @@ def load_into(module: nn.Module, sd: Dict[str, torch.Tensor], missing: List[str]
     return unwritten
 
 
+def channels_last_convs_(module: nn.Module) -> nn.Module:
+    """Lay every ``nn.Conv2d`` weight out channels-last, in place; values,
+    dtype and names are kept. The port's convs take channels-last inputs,
+    and cuDNN runs such a conv channels-last: an OIHW weight is copied into
+    that layout at every call, and at every replay of a captured graph. A
+    ``[O, I, 1, 1]`` weight already is channels-last and stays as it is;
+    the hand-written conv (``ops/conv.py``) is no ``nn.Conv2d`` and keeps
+    its OIHW weights. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
+    return module
+
+
 def build_module(make: Callable[[], nn.Module], device: torch.device, dtype: torch.dtype,
                  generator: torch.Generator, sd: Optional[Dict[str, torch.Tensor]] = None,
                  missing: Optional[List[str]] = None) -> nn.Module:
@@ -80,8 +95,9 @@ def build_module(make: Callable[[], nn.Module], device: torch.device, dtype: tor
     (the pipeline's, which the modules compute in).
     With a state dict, its tensors fill the parameters they name (see
     ``load_into``) and the rest are drawn from ``generator``; without one
-    every parameter is drawn, in the module's parameter order. Returns the
-    module in eval mode without gradients."""
+    every parameter is drawn, in the module's parameter order (drawn OIHW,
+    then laid out channels-last, so a seed gives the same values). Returns
+    the module in eval mode without gradients."""
     with torch.device("meta"):
         module = make()
     module = module.to(dtype=dtype).to_empty(device=device)
@@ -90,4 +106,4 @@ def build_module(make: Callable[[], nn.Module], device: torch.device, dtype: tor
         for name, p in module.named_parameters():
             if draw is None or name in draw:
                 p.normal_(0.0, PLACEHOLDER_SCALE, generator=generator)
-    return module.eval().requires_grad_(False)
+    return channels_last_convs_(module).eval().requires_grad_(False)

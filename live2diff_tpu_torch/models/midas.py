@@ -31,7 +31,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from .layers import FusedGroupNorm, FusedLayerNorm
-from .resnet import conv_nhwc
+from .resnet import conv_nhwc, count_weight_relayout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,14 +64,18 @@ def resize_nhwc(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
 class StdConv(nn.Conv2d):
     """Weight-standardised conv (BiT): each output channel's kernel is
     standardised over (in, kh, kw) in fp32 (population variance, eps 1e-8
-    inside the square root), then cast to the compute dtype. NHWC."""
+    inside the square root), then cast to the compute dtype. NHWC. The
+    elementwise ops keep a channels-last parameter's layout, so the
+    standardised weight reaches cuDNN channels-last."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.float()
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), keepdim=True, unbiased=False)
         w = ((w - mean) / torch.sqrt(var + 1e-8)).to(x.dtype)
-        out = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias, self.stride, self.padding)
+        x = x.permute(0, 3, 1, 2)
+        count_weight_relayout(x, w)
+        out = F.conv2d(x, w, self.bias, self.stride, self.padding)
         return out.permute(0, 2, 3, 1)
 
 

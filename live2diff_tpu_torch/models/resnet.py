@@ -17,12 +17,25 @@ from torch import nn
 
 from ..ops.choices import DEFAULT_KERNELS, KernelChoices
 from ..parallel.tp import tp_copy, tp_reduce
+from ..utils.timing import RECORDER
 from .layers import FusedGroupNorm
+
+
+def count_weight_relayout(x: torch.Tensor, weight: torch.Tensor) -> None:
+    """Count a conv whose NCHW input is channels-last and whose weight is
+    not: cuDNN then copies the weight into that layout at every call, and at
+    every replay of a captured graph (``trace_summary()``'s
+    ``conv_weight_relayouts``; eager calls and captures, not replays)."""
+    if (x.is_contiguous(memory_format=torch.channels_last)
+            and not weight.is_contiguous(memory_format=torch.channels_last)):
+        RECORDER.count("conv_weight_relayouts")
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """Apply a Conv2d to ``[N, H, W, C]`` through a channels-last NCHW view."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride, conv.padding)
+    x = x.permute(0, 3, 1, 2)
+    count_weight_relayout(x, conv.weight)
+    out = F.conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding)
     return out.permute(0, 2, 3, 1)
 
 
@@ -41,6 +54,7 @@ class InflatedConv(nn.Conv2d):
         conv's, with an fp32 output."""
         b, f, h, w, c = x.shape
         x = x.reshape(b * f, h, w, c).permute(0, 3, 1, 2)
+        count_weight_relayout(x, self.weight)
         if x.dtype == torch.float32:
             out = F.conv2d(x, self.weight, None, self.stride, self.padding)
         else:

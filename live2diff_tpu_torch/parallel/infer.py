@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..builder import resolve_device
+from ..convert.checkpoint import channels_last_convs_
 from ..models.unet import UNet3DConditionModel, UNetConfig
 from ..ops import _build
 from ..stream.state import KVCache
@@ -94,7 +95,7 @@ def random_unet(config: UNetConfig, seed: int = 0, dtype: torch.dtype = torch.fl
     with torch.no_grad():
         for p in unet.parameters():
             p.normal_(0.0, 0.02, generator=gen)
-    return unet.to(dtype).eval()
+    return channels_last_convs_(unet.to(dtype)).eval()
 
 
 def stream_inputs(config: UNetConfig, latent: int, steps: int, frames: int, text_len: int,

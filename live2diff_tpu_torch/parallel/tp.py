@@ -44,6 +44,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..convert.checkpoint import channels_last_convs_
+
 COLUMN, ROW, GEGLU = "column", "row", "geglu"
 
 # Matched against a parameter's name inside its block (a CrossAttention or
@@ -214,7 +216,8 @@ def shard_params(model: nn.Module, mesh) -> TPLayout:
     """Cut a full model, identical on every rank (same seed or checkpoint),
     to this tp rank's slabs in place, and hand each sharded block its tp
     group. Build the optimizer after this. Returns the layout, also kept as
-    ``model.tp_layout`` (checkpoints gather and cut by it)."""
+    ``model.tp_layout`` (checkpoints gather and cut by it). The conv weights'
+    slabs are laid out channels-last again (``channels_last_convs_``)."""
     layout = tp_plan(model, mesh.tp, mesh.tp_rank)
     group = layout.group = TPGroup(mesh.tp, mesh.tp_rank, mesh.tp_group)
     params = dict(model.named_parameters())
@@ -222,6 +225,7 @@ def shard_params(model: nn.Module, mesh) -> TPLayout:
         for name, spec in layout.specs.items():
             p = params[name]
             p.data = take_slab(p.data, spec, mesh.tp_rank, mesh.tp)
+    channels_last_convs_(model)
     modules = dict(model.named_modules())
     for name, sharded in layout.blocks.items():
         if sharded:

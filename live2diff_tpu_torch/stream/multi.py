@@ -276,7 +276,8 @@ class MultiStream:
         """The recorder's read-out of this ``MultiStream``'s rounds
         (``utils/timing.py``: ``Recorder.summary``): per span and device
         stage count, median, p95, mean, std and EMA in ms, and the
-        counters, ``norm_routes`` and ``codec_routes`` among them."""
+        counters, ``norm_routes``, ``codec_routes`` and
+        ``conv_weight_relayouts`` among them."""
         RECORDER.read_stages(self.owner)
         return with_routes(RECORDER.summary(self.owner))
 

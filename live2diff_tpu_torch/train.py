@@ -48,7 +48,7 @@ import torch
 from torch import nn
 
 from .builder import resolve_device
-from .convert.checkpoint import build_module, load_into, vae_state_dict
+from .convert.checkpoint import build_module, channels_last_convs_, load_into, vae_state_dict
 from .convert.ldm import convert_ldm_checkpoint
 from .convert.state_dict import load_state_dict_file
 from .models.text_encoder import CLIPTextConfig, CLIPTextModelWithFinalNorm
@@ -127,7 +127,7 @@ def _random_module(make: Callable[[], nn.Module], device: torch.device,
                    generator: torch.Generator) -> nn.Module:
     with torch.device("meta"):
         module = make()
-    return init_weights_(module.to_empty(device=device), generator)
+    return channels_last_convs_(init_weights_(module.to_empty(device=device), generator))
 
 
 def clip_config(clip_sd: Dict[str, torch.Tensor]) -> CLIPTextConfig:

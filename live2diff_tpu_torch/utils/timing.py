@@ -368,10 +368,13 @@ RECORDER = Recorder()
 def with_routes(summary: dict) -> dict:
     """``summary`` with the process's norm calls by route
     (``ops/norm.py:norm_route_counts``) and the KL codec's GroupNorms and
-    attentions (``models/vae.py:codec_route_counts``) among its counters."""
+    attentions (``models/vae.py:codec_route_counts``) among its counters,
+    and ``conv_weight_relayouts`` (``models/resnet.py:count_weight_relayout``)
+    at 0 where no conv counted one."""
     from ..models.vae import codec_route_counts
     from ..ops.norm import norm_route_counts
 
+    summary["counters"].setdefault("conv_weight_relayouts", 0)
     summary["counters"]["norm_routes"] = dict(norm_route_counts)
     summary["counters"]["codec_routes"] = dict(codec_route_counts)
     return summary

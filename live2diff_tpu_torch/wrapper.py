@@ -239,8 +239,9 @@ class StreamV2VWrapper:
         median, p95, mean, std (the first call left out) and EMA in ms; and
         the counters: ``calls``, ``filter_skips``, ``stage_reads_missed``,
         and the process's ``captures`` and ``kernel_loads`` with their
-        seconds, ``norm_routes`` (``ops/norm.py:norm_route_counts``) and
-        ``codec_routes`` (``models/vae.py:codec_route_counts``)."""
+        seconds, ``norm_routes`` (``ops/norm.py:norm_route_counts``),
+        ``codec_routes`` (``models/vae.py:codec_route_counts``) and
+        ``conv_weight_relayouts`` (``models/resnet.py:count_weight_relayout``)."""
         return with_routes(RECORDER.summary(self.owner))
 
     def timing_summary(self) -> Dict[str, float]:

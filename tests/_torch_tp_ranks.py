@@ -19,6 +19,7 @@ from live2diff_tpu_torch.parallel.train import (
     TrainState, is_motion_param, make_optimizer, make_train_step,
 )
 from live2diff_tpu_torch.train import TINY_UNET
+from live2diff_tpu_torch.utils.timing import RECORDER
 
 TRAIN_UNET = dict(TINY_UNET, layers_per_block=1)
 LR, WD = 1e-3, 0.01
@@ -83,9 +84,15 @@ def ranked(rank: int, out_dir: str) -> None:
     unet = UNet3DConditionModel(UNetConfig(**TINY_UNET))
     unet.load_state_dict(data["stream_sd"], strict=True)
     shard_params(unet, mesh)
+    res["stream_conv_layouts"] = {
+        n: m.weight.is_contiguous(memory_format=torch.channels_last)
+        for n, m in unet.named_modules() if isinstance(m, nn.Conv2d)}
     caches = unet.config.init_caches(8, 8, 2, torch.float32, tp=mesh.tp)
+    relayouts = RECORDER.summary(0)["counters"].get("conv_weight_relayouts", 0)
     outs, caches, _ = run_stream(unet, caches, data["stream_inputs"])
     res["stream"], res["stream_caches"] = outs, caches
+    res["stream_relayouts"] = (RECORDER.summary(0)["counters"].get("conv_weight_relayouts", 0)
+                               - relayouts)
 
     res["train_tp"] = train_run(mesh, data, os.path.join(out_dir, "ckpt_tp2"))
     res["train_dp"] = train_run(make_mesh(dp=2, tp=1), data)

@@ -247,6 +247,15 @@ def test_tp2_stream_matches_one_process_and_its_cache_slabs(run):
             assert rel_err(a, b) < STREAM_TOL, r
 
 
+def test_tp2_shards_keep_the_conv_weights_channels_last(run):
+    """``shard_params`` lays the conv slabs out channels-last again, so the
+    sharded stream (its row convs through ``partial_fp32``) counts no
+    weight relayout."""
+    for res in run["ranks"]:
+        assert res["stream_conv_layouts"] and all(res["stream_conv_layouts"].values())
+        assert res["stream_relayouts"] == 0
+
+
 def test_tp2_stream_matches_the_jax_unsharded_apply(run):
     assert len(run["jax_stream"]) == FRAMES
     for out, ref in zip(run["ranks"][0]["stream"], run["jax_stream"]):
